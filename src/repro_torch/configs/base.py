@@ -1,0 +1,85 @@
+"""Model configuration: the dense-family subset of ``repro.configs.base``
+(swiglu MLP, no qk-norm: what qwen2.5-3b uses).
+
+Configs are plain frozen dataclasses, as in the reference. Dtypes are kept
+as names (``"bfloat16"``, ``"float32"``) so a config stays hashable and
+printable; :attr:`ModelConfig.compute_dtype` and
+:attr:`ModelConfig.param_torch_dtype` give the torch dtypes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                       # 0 -> d_model // num_heads
+
+    # attention flavor
+    attention: Literal["full", "sliding", "chunked"] = "full"
+    window: int = 0                         # sliding-window size
+    attn_chunk: int = 0                     # chunked-local chunk size
+    global_attn_every: int = 0              # every k-th layer is full attn
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0              # GLM partial rotary
+
+    # embeddings / scaling (MiniCPM mu-parametrization)
+    tie_embeddings: bool = False
+    embed_scale: float = 1.0
+    residual_scale: float = 1.0             # applied per-block output
+    logit_scale: float = 1.0
+
+    # numerics
+    dtype: str = "bfloat16"                 # activation/compute dtype
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def param_torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256, as in the reference."""
+        mult = 256
+        return (self.vocab_size + mult - 1) // mult * mult
+
+
+def reduced(config: ModelConfig, **overrides) -> ModelConfig:
+    """A tiny same-family config for CPU smoke tests (the reference's sizes)."""
+    small = dict(
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=max(1, min(config.num_kv_heads, 2)),
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        window=min(config.window, 32) if config.window else 0,
+        attn_chunk=min(config.attn_chunk, 32) if config.attn_chunk else 0,
+        dtype="float32",
+        name=config.name + "-smoke",
+    )
+    small.update(overrides)
+    return dataclasses.replace(config, **small)

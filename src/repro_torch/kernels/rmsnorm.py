@@ -1,0 +1,111 @@
+"""Fused RMSNorm (+ optional residual add): wrapper of ``csrc/rmsnorm.cu``.
+
+Replaces ``repro.kernels.rmsnorm.rmsnorm`` (see the source note in the
+``.cu`` file for the bound and the design). CUDA tensors launch the kernel
+through the ``repro_torch::rmsnorm`` custom op, whose vmap rule folds the
+vmapped dim into the rows; CPU tensors take :func:`ref.rmsnorm_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from . import _build
+from .ref import rmsnorm_ref
+
+MAX_D = 8192
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Kernel launches since the last reset (one per launch, nowhere else).
+launches = 0
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+@functools.cache
+def _launcher():
+    fn = _build.library("rmsnorm").rmsnorm_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, residual: torch.Tensor | None) -> None:
+    d = x.shape[-1]
+    if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
+        raise TypeError(f"rmsnorm kernel takes float32/bfloat16, got x {x.dtype}, w {w.dtype}")
+    if w.shape != (d,):
+        raise ValueError(f"rmsnorm weight shape {tuple(w.shape)} != ({d},)")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"rmsnorm kernel takes 1 <= d <= {MAX_D}, got {d}")
+    tensors = [x, w] + ([residual] if residual is not None else [])
+    if any(t.device != x.device or t.device.type != "cuda" for t in tensors):
+        raise ValueError("rmsnorm kernel needs x, w and residual on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rmsnorm kernel needs contiguous x, w and residual")
+    if residual is not None and (residual.shape != x.shape or residual.dtype != x.dtype):
+        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} does not "
+                         f"match x {tuple(x.shape)} {x.dtype}")
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=(), device_types="cuda")
+def _rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float,
+                  residual: torch.Tensor | None) -> torch.Tensor:
+    global launches
+    _check(x, w, residual)
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    n = x.numel() // d
+    if n == 0:
+        return out
+    err = _launcher()(x.data_ptr(), residual.data_ptr() if residual is not None else None,
+                      w.data_ptr(), out.data_ptr(), n, d, eps, _DTYPES[x.dtype],
+                      _DTYPES[w.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        launches += 1
+    return out
+
+
+@_rmsnorm_cuda.register_fake
+def _(x, w, eps, residual):
+    return torch.empty_like(x)
+
+
+@_rmsnorm_cuda.register_vmap
+def _(info, in_dims, x, w, eps, residual):
+    x_dim, w_dim, _, r_dim = in_dims
+    n = info.batch_size
+
+    def front(t, dim):
+        if t is None:
+            return None
+        return (t.movedim(dim, 0) if dim is not None
+                else t.expand(n, *t.shape)).contiguous()
+
+    x, residual = front(x, x_dim), front(residual, r_dim)
+    if w_dim is not None:   # per-member weights: one launch per member
+        w = w.movedim(w_dim, 0)
+        return torch.stack([
+            _rmsnorm_cuda(x[i], w[i], eps, None if residual is None else residual[i])
+            for i in range(n)]), 0
+    return _rmsnorm_cuda(x, w, eps, residual), 0   # vmapped dim folds into rows
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            residual: torch.Tensor | None = None) -> torch.Tensor:
+    """CUDA tensors launch the kernel (or raise); CPU tensors take the plain version."""
+    if x.device.type == "cuda":
+        return _rmsnorm_cuda(x, w, eps, residual)
+    return rmsnorm_ref(x, w, eps=eps, residual=residual)

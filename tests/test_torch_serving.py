@@ -1,0 +1,224 @@
+"""The port's request-level RegionServer and serve entry point.
+
+Three tenants of the reduced qwen2.5-3b decode step (JAX parameters
+carried across) go through the port's server: a coalesced batch must give
+what each request gives alone, the shared params module must be broadcast
+rather than stacked, and the tokens the server generates must equal JAX
+``greedy_decode`` on the same parameters and prompts.
+"""
+import threading
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.core.costmodel import BucketTuner  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import TDG, clear_intern_cache  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serving import LatencyReservoir, RegionServer, percentile  # noqa: E402
+from repro_torch.serving.server import bucket_for  # noqa: E402
+from repro_torch.training import make_serve_step  # noqa: E402
+
+MAX_LEN = 24
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jax_reduced(jax_get_config("qwen2.5-3b"))
+    cfg = reduced(get_config("qwen2.5-3b"))
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
+    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    return jcfg, jparams, cfg, params
+
+
+def _prompt(i):
+    return np.random.default_rng(100 + i).integers(2, 256, (2, 10)).astype(np.int32)
+
+
+def _prefill(cfg, params, i):
+    with torch.no_grad():
+        logits, caches, pos = M.prefill(params, cfg, {"tokens": torch.from_numpy(_prompt(i))},
+                                        MAX_LEN)
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), pos, caches
+
+
+def _decode_tenants(server, decode, n):
+    for i in range(n):
+        g = TDG(f"decode[{i}]")
+        g.add_task(decode, ins=["params", "tokens", "pos", "caches"],
+                   outs=["next", "caches"], name="decode")
+        server.register_tenant(f"t{i}", g, outputs=("next", "caches"))
+
+
+def _request(params, tok, pos, caches):
+    return {"params": params, "tokens": tok[:, None], "pos": pos, "caches": caches}
+
+
+def test_coalesced_batch_equals_single_requests(model):
+    _, _, cfg, params = model
+    clear_intern_cache()
+    decode = make_serve_step(cfg)
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    _decode_tenants(server, decode, 3)
+    assert server.stats()["intern"]["hits"] == 2       # tenants 2, 3 reuse tenant 1
+    reqs = [_request(params, *_prefill(cfg, params, i)) for i in range(3)]
+    futures = [server.submit(f"t{i}", r) for i, r in enumerate(reqs)]
+    server.start()
+    outs = [f.result(timeout=120) for f in futures]
+    server.close()
+    for i, (req, out) in enumerate(zip(reqs, outs)):
+        with torch.no_grad():
+            alone = server.tenant(f"t{i}").replay_fn()(req)
+        torch.testing.assert_close(out["next"], alone["next"], atol=0, rtol=0)
+        for a, b in zip(torch.utils._pytree.tree_leaves(out["caches"]),
+                        torch.utils._pytree.tree_leaves(alone["caches"])):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    m = server.stats()["metrics"]
+    assert (m["batches"], m["batch_occupancy_max"], m["coalesced_requests"]) == (1, 3, 3)
+    assert m["batch_fallbacks"] == 0 and m["pad_lanes"] == 1   # 3 runs in bucket 4
+    assert m["completed"] == 3 and m["queue_depth_peak"] == 3
+
+
+def test_shared_params_are_broadcast_not_stacked(model):
+    _, _, cfg, params = model
+    decode = make_serve_step(cfg)
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    _decode_tenants(server, decode, 2)
+    futures = [server.submit(f"t{i}", _request(params, *_prefill(cfg, params, i)))
+               for i in range(2)]
+    server.start()
+    for f in futures:
+        f.result(timeout=120)
+    server.close()
+    (key,) = list(server.pool._entries)
+    slot_map = server.tenant("t0").slot_map
+    assert key[0] == "batched" and key[3] == frozenset({slot_map["params"]})
+    assert server.stats()["pool"]["entries"] == 1
+
+
+def test_server_tokens_equal_jax_greedy_decode(model):
+    jcfg, jparams, cfg, params = model
+    gen, tenants = 6, 3
+    decode = make_serve_step(cfg)
+    server = RegionServer(max_batch=tenants, max_wait_ms=5.0)
+    _decode_tenants(server, decode, tenants)
+    outs, errors = {}, []
+
+    def loop(i):
+        try:
+            tok, pos, caches = _prefill(cfg, params, i)
+            toks = [tok]
+            for _ in range(gen - 1):
+                out = server.serve(f"t{i}", _request(params, tok, pos, caches), timeout=120)
+                tok, caches, pos = out["next"], out["caches"], pos + 1
+                toks.append(tok)
+            outs[i] = torch.stack(toks, dim=1).numpy()
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=loop, args=(i,)) for i in range(tenants)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    server.close()
+    assert not errors and not any(t.is_alive() for t in threads)
+    for i in range(tenants):
+        want = JM.greedy_decode(jparams, jcfg, {"tokens": jnp.asarray(_prompt(i))}, gen,
+                                MAX_LEN)
+        np.testing.assert_array_equal(outs[i], np.asarray(want))
+    m = server.stats()["metrics"]
+    assert m["completed"] == tenants * (gen - 1) and m["batch_fallbacks"] == 0
+
+
+def test_unbatchable_payload_falls_back_to_serial():
+    def step(x):
+        return x + float(x.sum())       # host sync: refused under vmap
+
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    for i in range(2):
+        g = TDG(f"r{i}")
+        g.add_task(step, inouts=["x"])
+        server.register_tenant(f"r{i}", g)
+    futures = [server.submit(f"r{i}", {"x": torch.full((3,), float(i + 1))}) for i in range(2)]
+    server.start()
+    outs = [f.result(timeout=60) for f in futures]
+    server.close()
+    assert [o["x"].tolist() for o in outs] == [[4.0] * 3, [8.0] * 3]
+    m = server.stats()["metrics"]
+    assert m["batch_fallbacks"] == 1 and m["coalesced_requests"] == 0
+
+
+def test_different_payloads_never_share_a_batch():
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    for name, fn in (("a", lambda x: x + 1), ("b", lambda x: x + 2)):
+        g = TDG(name)
+        g.add_task(fn, inouts=["x"])
+        server.register_tenant(name, g)
+    fa = server.submit("a", {"x": torch.zeros(2)})
+    fb = server.submit("b", {"x": torch.zeros(2)})
+    server.start()
+    assert fa.result(timeout=60)["x"].tolist() == [1.0, 1.0]
+    assert fb.result(timeout=60)["x"].tolist() == [2.0, 2.0]
+    server.close()
+    m = server.stats()["metrics"]
+    assert m["batches"] == 2 and m["batch_occupancy_max"] == 1
+
+
+def test_admission_errors():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RegionServer(continuous=True)
+    server = RegionServer()
+    g = TDG("one")
+    g.add_task(lambda x: x, inouts=["x"])
+    server.register_tenant("one", g)
+    with pytest.raises(ValueError, match="already registered"):
+        server.register_tenant("one", g)
+    with pytest.raises(KeyError, match="unknown tenant"):
+        server.submit("two", {"x": torch.zeros(1)})
+    with pytest.raises(KeyError, match="missing input slots"):
+        server.submit("one", {})
+    server.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        server.submit("one", {"x": torch.zeros(1)})
+
+
+def test_bucket_ladder_matches_reference_static_ladder():
+    ladder = BucketTuner(8, adaptive=False)
+    assert [bucket_for(n) for n in range(1, 20)] == [ladder.bucket_for(n) for n in range(1, 20)]
+
+
+def test_latency_percentiles():
+    assert percentile([], 50) == 0.0
+    vals = sorted(float(v) for v in range(1, 101))
+    assert (percentile(vals, 50), percentile(vals, 99), percentile(vals, 100)) == (50.0, 99.0, 100.0)
+    res = LatencyReservoir(capacity=4)
+    for v in (5.0, 1.0, 2.0, 3.0, 4.0):
+        res.record(v)
+    assert res.summary() == {"count": 5, "p50_s": 2.0, "p99_s": 4.0, "max_s": 4.0}
+
+
+@pytest.mark.parametrize("mode", [["--server", "--tenants", "3"], []])
+def test_serve_cli_smoke_on_cpu(mode, capsys):
+    assert serve.main(["--smoke", "--device", "cpu", "--gen", "4", "--prompt-len", "8",
+                       "--batch", "2", *mode]) == 0
+    out = capsys.readouterr().out
+    assert "decode:" in out and "kernels: rmsnorm 0 launches" in out
+    if mode:
+        assert "0 fallbacks" in out
+
+
+def test_serve_cli_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--smoke"])

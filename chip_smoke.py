@@ -6,29 +6,52 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. Device and build: print the card's name and power limit
-   (``nvidia-smi``), build both CUDA kernels from ``src/repro_torch/csrc``
-   and print the build time and the compiler's register / shared memory
-   report.
+   (``nvidia-smi``), build the four CUDA kernels from
+   ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel) and print the
+   build time and the compiler's register / shared memory report.
 2. Kernels: hold each kernel against its plain PyTorch version on the
-   card, at the slice's shapes and at small cases (GQA, MQA, MHA, ragged
-   S, window, chunk, decode offset, cross attention, head dims 16-128;
-   RMSNorm with residual, with a (B, S, H, hd) input, ragged and wide d),
-   with atol = rtol = 2e-5 in f32 and 2e-2 in bf16. Time the kernel, its
-   plain version and one PyTorch library call (``F.rms_norm``,
-   ``F.scaled_dot_product_attention``, which the port never calls) with
-   CUDA events at the slice's shapes.
-3. Slice: full-width qwen2.5-3b (random weights from a seeded generator)
-   prefills 4 tenants x batch 4 x 512 tokens, then serves 8 decode steps
-   per tenant from 4 threads through the port's request-level
-   ``RegionServer``. Checks: both kernels' launch counts rose (flash
-   attention in prefill, RMSNorm in prefill and decode), no batch fell
-   back to serial replay, some batch held more than one request, the
-   structural intern cache was hit by tenants 2..4, and tenant 0's
-   logits (prefill and one decode step) agree between the kernels and the
-   plain versions within relative L2 2e-2.
-4. Profile: one prefill and one more coalesced decode round under
-   ``torch.profiler``, printing the card's busy and idle shares and the
-   kernels that take the device time.
+   card, at the paths' shapes and at small cases:
+   RMSNorm (residual, (B, S, H, hd) input, ragged and wide d) and flash
+   attention (GQA, MQA, MHA, ragged S, window, chunk, decode offset, cross
+   attention, head dims 16-128) at atol = rtol = 2e-5 in f32 and 2e-2 in
+   bf16; grouped matmul (the reference's cases in f32 and bf16, ragged C,
+   d and f, the MoE prefill and decode shapes) at atol = TOL·d, rtol = TOL
+   as the reference's test, plus relative L2 <= 1e-5 (f32) / 5e-3 (bf16);
+   SSD (the reference's cases, the mamba2 shape, ragged S, an init_state
+   chained into the sequential decode recurrence) at 1e-3 against
+   ``ssd_ref`` and ``ssd_chunked_ref``. Time each kernel, its plain version
+   and one PyTorch library call where one computes the same function
+   (``F.rms_norm``, ``F.scaled_dot_product_attention``, ``torch.bmm``; the
+   port never calls them) with CUDA events at the paths' shapes.
+3. Paths, one model at a time (the previous one freed first), each driven
+   the same way: 4 tenants each prefill batch 4 x 512 tokens, then 8
+   greedy decode steps each from 4 threads through the port's
+   request-level ``RegionServer`` (one-task decode TDGs). Kernel launch
+   counts are set to 0 just before each path and read just after. Every
+   path checks: no batch fell back to serial replay, some batch held more
+   than one tenant, the structural intern cache was hit by tenants 2..4.
+   a. qwen2.5-3b, full width and depth: flash attention launched in
+      prefill, RMSNorm in prefill and decode; tenant 0's logits (prefill
+      and one decode step) with the kernels against the plain versions
+      within relative L2 2e-2.
+   b. qwen3-moe-30b-a3b, full width, 16 of 48 layers (f32 params do not
+      fit one card): grouped matmul launched 48 times a tenant in prefill
+      and in decode, flash attention and RMSNorm in prefill; in f32 (same
+      weights) tenant 0's prefill logits and one decode step within
+      relative L2 1e-3, the plain run taking the kernel run's top-k expert
+      choices (printed: how many its own router would change); in bf16
+      layer 0's MoE on one input within relative L2 2e-2 (identical
+      routing); the bf16 whole-model gap, unpinned, printed without limit.
+   c. mamba2-370m, full width and depth: SSD launched 48 times a tenant in
+      prefill and never in decode, RMSNorm in both; in f32 (same weights)
+      tenant 0's prefill logits and one decode step within relative L2
+      1e-3; in bf16 layer 0's mixer on one input within relative L2 2e-2;
+      the bf16 gap at depths 3, 12, 24 and 48 printed without limit
+      (one-ulp differences grow with depth through the random-weight
+      stack).
+4. Profile, for each path: one prefill and one more coalesced decode
+   round under ``torch.profiler``, printing the card's busy and idle
+   shares and the kernels that take the device time.
 
 The last lines are one ``{"kernels": [...]}`` JSON object and then
 ``{"ok": true, "device": {...}}``. Needs a CUDA card and the repository
@@ -36,6 +59,8 @@ beside this file.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import re
 import statistics
@@ -53,8 +78,11 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense; f32 off tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GMM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+SSD_TOL = 1e-3
 
 TENANTS, BATCH, PROMPT, DECODE_STEPS = 4, 4, 512, 8
+MOE_LAYERS = 16                     # of 48: f32 params of all 48 take 122 GB
 
 
 def log(*a) -> None:
@@ -99,18 +127,41 @@ def library_ms(name: str, fn, flush: torch.Tensor) -> float | None:
         return None
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
+            rtol: float | None = None) -> float:
     torch.cuda.synchronize()
+    rtol = atol if rtol is None else rtol
     err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[dtype]
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+    if got.shape != want.shape or not torch.allclose(got.float(), want.float(),
+                                                     atol=atol, rtol=rtol):
         raise AssertionError(f"{name}: kernel disagrees with plain version "
-                             f"(max abs err {err:.3g}, atol=rtol={tol})")
+                             f"(max abs err {err:.3g}, atol {atol:.3g}, rtol {rtol:.3g})")
     return err
 
 
-def randn(*shape, dtype, gen) -> torch.Tensor:
-    return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def randn(*shape, dtype, gen, scale: float = 1.0) -> torch.Tensor:
+    return (torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32)
+            * scale).to(dtype)
+
+
+def bound(nbytes: int, flops: float, dtype) -> tuple[float, str]:
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(mem_ms, op_ms), "bytes" if mem_ms >= op_ms else "operations"
+
+
+def entry(name, source, replaces, err, tol, kernel_ms, plain_ms, lib_ms, bound_ms,
+          bound_by, shape, dtype) -> dict:
+    """One kernel's record in the ``{"kernels": [...]}`` line."""
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": err, "tolerance": tol, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": shape, "dtype": dtype}
 
 
 # ---------------------------------------------------------------- kernels
@@ -124,6 +175,8 @@ def check_rmsnorm(rms, ref, gen) -> dict:
         ((64, 2048), torch.float32, torch.float32, True),
         ((2, 17, 16, 128), torch.bfloat16, torch.float32, False),          # (B,S,H,hd)
         ((2, 17, 16, 128), torch.float32, torch.bfloat16, True),
+        ((4, 512, 32, 128), torch.bfloat16, torch.float32, False),         # qwen3 qk-norm
+        ((4, 512, 1024), torch.bfloat16, torch.float32, False),            # mamba2 block
         ((33, 1000), torch.float32, torch.float32, False),                 # ragged d
         ((8, 8192), torch.bfloat16, torch.float32, True),                  # widest d
         ((5, 16), torch.float32, torch.float32, False),
@@ -134,7 +187,7 @@ def check_rmsnorm(rms, ref, gen) -> dict:
         w = randn(shape[-1], dtype=wdt, gen=gen)
         r = randn(*shape, dtype=xdt, gen=gen) if res else None
         err = compare(f"rmsnorm {shape} {xdt} res={res}", rms.rmsnorm(x, w, residual=r),
-                      ref.rmsnorm_ref(x, w, residual=r), xdt)
+                      ref.rmsnorm_ref(x, w, residual=r), TOL[xdt])
         if shape[0] == TENANTS * PROMPT:
             worst = max(worst, err)
     log(f"rmsnorm: {len(cases)} cases agree (main-path max abs err {worst:.3g})")
@@ -146,25 +199,20 @@ def check_rmsnorm(rms, ref, gen) -> dict:
     kernel_ms = time_ms(lambda: rms.rmsnorm(x, w), flush=flush)
     plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, w), flush=flush)
     lib_ms = library_ms("F.rms_norm", lambda: F.rms_norm(x, (d,), w, 1e-6), flush)
-    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
-    flops = 4 * x.numel()
-    mem_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    b_ms, b_by = bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
+                       4 * x.numel(), torch.float32)
     dec = randn(TENANTS * BATCH, d, dtype=torch.bfloat16, gen=gen)
     log(f"rmsnorm timing ({n}x{d} bf16): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.rms_norm {lib_ms} ms, bound {max(mem_ms, op_ms):.4f} ms; decode "
+        f"F.rms_norm {lib_ms} ms, bound {b_ms:.4f} ms; decode "
         f"{TENANTS * BATCH}x{d}: kernel {time_ms(lambda: rms.rmsnorm(dec, w), flush=flush):.4f} ms")
-    return {"name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/csrc/rmsnorm.cu",
-            "replaces": "src/repro/kernels/rmsnorm.py:33", "max_abs_err": worst,
-            "tolerance": TOL[torch.bfloat16], "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(mem_ms, op_ms), "bound_us": max(mem_ms, op_ms) * 1e3,
-            "bound_by": "bytes" if mem_ms >= op_ms else "operations",
-            "shape": [n, d], "dtype": "bfloat16"}
+    return entry("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:33", worst,
+                 TOL[torch.bfloat16], kernel_ms, plain_ms, lib_ms, b_ms, b_by, [n, d], "bfloat16")
 
 
 def check_attention(fa, ref, gen) -> dict:
     cases = [  # (B, Sq, Sk, Hq, Hkv, D, dtype, kwargs)
-        (TENANTS, PROMPT, PROMPT, 16, 2, 128, torch.bfloat16, {}),      # prefill
+        (TENANTS, PROMPT, PROMPT, 16, 2, 128, torch.bfloat16, {}),      # dense prefill
+        (TENANTS, PROMPT, PROMPT, 32, 4, 128, torch.bfloat16, {}),      # qwen3-moe prefill
         (2, 256, 256, 8, 2, 64, torch.float32, {}),                     # GQA
         (2, 256, 256, 4, 1, 128, torch.bfloat16, {}),                   # MQA
         (2, 128, 128, 4, 4, 64, torch.float32, {}),                     # MHA
@@ -185,7 +233,8 @@ def check_attention(fa, ref, gen) -> dict:
         k = randn(B, Sk, Hkv, D, dtype=dt, gen=gen)
         v = randn(B, Sk, Hkv, D, dtype=dt, gen=gen)
         err = compare(f"attention B{B} Sq{Sq} Sk{Sk} Hq{Hq} Hkv{Hkv} D{D} {dt} {kw}",
-                      fa.flash_attention(q, k, v, **kw), ref.attention_ref(q, k, v, **kw), dt)
+                      fa.flash_attention(q, k, v, **kw), ref.attention_ref(q, k, v, **kw),
+                      TOL[dt])
         if Sq == PROMPT:
             worst = max(worst, err)
     log(f"flash_attention: {len(cases)} cases agree (main-path max abs err {worst:.3g})")
@@ -202,22 +251,126 @@ def check_attention(fa, ref, gen) -> dict:
         qt, kt, vt, is_causal=True, enable_gqa=True), flush)
     pairs = B * Hq * S * (S + 1) // 2          # causal (q, k) pairs this run needs
     flops = 4 * D * pairs                       # QK^T and PV, 2 flops a MAC each
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    mem_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    b_ms, b_by = bound(sum(t.numel() * t.element_size() for t in (q, k, v, q)), flops,
+                       torch.bfloat16)
     log(f"flash_attention timing ({B}x{S}, {Hq}/{Hkv} heads, D{D} bf16 causal): kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms} ms, bound "
-        f"{max(mem_ms, op_ms):.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s achieved)")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:102", "max_abs_err": worst,
-            "tolerance": TOL[torch.bfloat16], "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(mem_ms, op_ms), "bound_us": max(mem_ms, op_ms) * 1e3,
-            "bound_by": "bytes" if mem_ms >= op_ms else "operations",
-            "shape": [B, S, Hq, Hkv, D], "dtype": "bfloat16"}
+        f"{b_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s achieved)")
+    return entry("flash_attention", "flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:102", worst,
+                 TOL[torch.bfloat16], kernel_ms, plain_ms, lib_ms, b_ms, b_by,
+                 [B, S, Hq, Hkv, D], "bfloat16")
 
 
-# ---------------------------------------------------------------- slice
+def check_grouped_matmul(gmm, ref, gen) -> dict:
+    E, d, f = 128, 2048, 768                    # qwen3-moe experts
+    c_pre, c_dec = 160, 8 * TENANTS             # prefill capacity; 4 decode tenants folded
+    cases = [(4, 64, 128, 128), (2, 100, 256, 128), (8, 32, 128, 256),   # the reference's
+             (3, 37, 128, 64),                  # ragged C
+             (2, 64, 100, 64),                  # ragged d
+             (2, 40, 128, 60),                  # ragged f
+             (3, 13, 99, 45),                   # all ragged
+             (E, c_pre, d, f), (E, c_pre, f, d), (E, c_dec, d, f)]   # MoE prefill, decode
+    worst = 0.0
+    for case in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            e, c, dd, ff = case
+            x = randn(e, c, dd, dtype=dt, gen=gen, scale=0.3)
+            w = randn(e, dd, ff, dtype=dt, gen=gen, scale=0.3)
+            got, want = gmm.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w)
+            err = compare(f"grouped_matmul {case} {dt}", got, want, TOL[dt] * dd, TOL[dt])
+            rl2 = rel_l2(got, want)
+            if rl2 > GMM_REL[dt]:
+                raise AssertionError(f"grouped_matmul {case} {dt}: rel L2 {rl2:.3g} > "
+                                     f"{GMM_REL[dt]}")
+            if case == (E, c_pre, d, f) and dt == torch.bfloat16:
+                worst = err
+    log(f"grouped_matmul: {2 * len(cases)} cases agree (prefill bf16 max abs err {worst:.3g})")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, c in (("prefill", c_pre), ("decode", c_dec)):
+        x = randn(E, c, d, dtype=torch.bfloat16, gen=gen, scale=0.3)
+        w = randn(E, d, f, dtype=torch.bfloat16, gen=gen, scale=0.3)
+        kernel_ms = time_ms(lambda: gmm.grouped_matmul(x, w), flush=flush)
+        plain_ms = time_ms(lambda: ref.grouped_matmul_ref(x, w), flush=flush)
+        lib_ms = library_ms("torch.bmm", lambda: torch.bmm(x, w), flush)
+        flops = 2 * E * c * d * f
+        b_ms, b_by = bound(2 * (x.numel() + w.numel() + E * c * f), flops, torch.bfloat16)
+        log(f"grouped_matmul timing {label} ({E}x{c}x{d} @ {E}x{d}x{f} bf16): kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {flops / kernel_ms / 1e9:.1f} TFLOP/s achieved)")
+        out[label] = (kernel_ms, plain_ms, lib_ms, b_ms, b_by)
+    e = entry("grouped_matmul", "grouped_matmul.cu", "src/repro/kernels/moe_gmm.py:41",
+              worst, TOL[torch.bfloat16] * d, *out["prefill"], [E, c_pre, d, f], "bfloat16")
+    e["decode_ms"], e["decode_bound_ms"] = out["decode"][0], out["decode"][3]
+    return e
+
+
+def _ssd_inputs(gen, Bz, S, H, P, G, N):
+    x = randn(Bz, S, H, P, dtype=torch.float32, gen=gen)
+    dt = randn(Bz, S, H, dtype=torch.float32, gen=gen).abs() * 0.1 + 0.01
+    A = -randn(H, dtype=torch.float32, gen=gen).abs() - 0.1
+    Bm = randn(Bz, S, G, N, dtype=torch.float32, gen=gen, scale=0.5)
+    Cm = randn(Bz, S, G, N, dtype=torch.float32, gen=gen, scale=0.5)
+    D = randn(H, dtype=torch.float32, gen=gen)
+    return x, dt, A, Bm, Cm, D
+
+
+def check_ssd(ssd, ref, gen) -> dict:
+    Bz, S, H, P, G, N, Q = TENANTS, PROMPT, 32, 64, 1, 128, 128    # mamba2-370m prefill
+    cases = [(2, 128, 2, 32, 1, 16, 32), (2, 256, 4, 64, 2, 32, 64),
+             (2, 64, 2, 16, 1, 64, 64),                            # the reference's three
+             (Bz, S, H, P, G, N, Q),                               # the path's shape
+             (2, 100, 4, 16, 1, 16, 32)]                           # ragged S
+    worst = 0.0
+    for case in cases:
+        b_, s_, h_, p_, g_, n_, q_ = case
+        x, dt, A, Bm, Cm, D = _ssd_inputs(gen, b_, s_, h_, p_, g_, n_)
+        y, hT = ssd.ssd(x, dt, A, Bm, Cm, D=D, chunk=q_)
+        y_seq, h_seq = ref.ssd_ref(x, dt, A, Bm, Cm, D=D)
+        y_chk, h_chk = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D=D, chunk=q_)
+        for label, want_y, want_h in (("ssd_ref", y_seq, h_seq), ("ssd_chunked_ref", y_chk, h_chk)):
+            err = compare(f"ssd {case} y vs {label}", y, want_y, SSD_TOL)
+            compare(f"ssd {case} state vs {label}", hT, want_h, SSD_TOL)
+            if case == (Bz, S, H, P, G, N, Q):
+                worst = max(worst, err)
+    # prefill state chained into the sequential decode recurrence
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 96, 2, 16, 1, 8)
+    y_all, _ = ref.ssd_ref(x, dt, A, Bm, Cm)
+    cut = 64
+    _, h = ssd.ssd(x[:, :cut], dt[:, :cut], A, Bm[:, :cut], Cm[:, :cut], chunk=32)
+    ys = []
+    for t in range(cut, 96):
+        y_t, h = ref.ssd_ref(x[:, t:t + 1], dt[:, t:t + 1], A, Bm[:, t:t + 1],
+                             Cm[:, t:t + 1], init_state=h)
+        ys.append(y_t)
+    compare("ssd state chaining", torch.cat(ys, 1), y_all[:, cut:], SSD_TOL)
+    log(f"ssd: {len(cases) + 1} cases agree (path-shape max abs err {worst:.3g})")
+
+    # the kernel alone, at the path's shape, from ssd()'s own layouts
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, Bz, S, H, P, G, N)
+    xs = ssd._rows_first(x * dt[..., None])
+    bg, cg = ssd._rows_first(Bm), ssd._rows_first(Cm)
+    lda = ssd._rows_first(dt * A)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kernel_ms = time_ms(lambda: ssd.ssd_intra_chunk(xs, bg, cg, lda, Q), flush=flush)
+    plain_ms = time_ms(lambda: ref.ssd_intra_chunk_ref(xs, bg, cg, lda, Q), flush=flush)
+    BH, nc = Bz * H, S // Q
+    pairs = nc * Q * (Q + 1) // 2                # causal (i, j) pairs of a chunk
+    # C·Bᵀ once per group, y per head, end-state per head
+    flops = 2 * pairs * (Bz * G * N + BH * P) + 2 * BH * nc * Q * N * P
+    nbytes = 4 * (2 * xs.numel() + bg.numel() + cg.numel() + lda.numel()
+                  + BH * nc * (N * P + 1))
+    b_ms, b_by = bound(nbytes, flops, torch.float32)
+    log(f"ssd_intra_chunk timing (BH {BH}, S {S}, Q {Q}, P {P}, N {N} f32): kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s achieved)")
+    return entry("ssd_intra_chunk", "ssd_chunk.cu", "src/repro/kernels/ssd_scan.py:69",
+                 worst, SSD_TOL, kernel_ms, plain_ms, None, b_ms, b_by, [BH, S, Q, P, N], "float32")
+
+
+# ---------------------------------------------------------------- paths
 
 def device_profile(label: str, fn) -> None:
     """Run ``fn`` under torch.profiler; print its wall time, the card's busy
@@ -243,66 +396,42 @@ def device_profile(label: str, fn) -> None:
             f"(the profiler recorded no CUDA activity)")
         return
     groups = {"matmul (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass", "sm90"),
-              "flash_attention kernel": ("fa_fwd",), "rmsnorm kernel": ("rmsnorm_kernel",)}
+              "flash_attention kernel": ("fa_fwd",), "rmsnorm kernel": ("rmsnorm_kernel",),
+              "grouped_matmul kernel": ("gmm_bf16", "gmm_f32"),
+              "ssd kernel": ("ssd_chunk",)}
+    other = "other (casts, elementwise, softmax, copies)"
     shares = {g: 0.0 for g in groups}
-    shares["other (casts, elementwise, softmax, copies)"] = 0.0
+    shares[other] = 0.0
     for name, us in by_name.items():
-        g = next((g for g, keys in groups.items() if any(k in name for k in keys)),
-                 "other (casts, elementwise, softmax, copies)")
+        g = next((g for g, keys in groups.items() if any(k in name for k in keys)), other)
         shares[g] += us
     log(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({busy / wall_us:.1%}; idle {1 - busy / wall_us:.1%}), {n} device ops; "
-        + "; ".join(f"{g} {us / 1e3:.2f} ms" for g, us in shares.items()))
+        + "; ".join(f"{g} {us / 1e3:.2f} ms" for g, us in shares.items() if us))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
         log(f"  {us / 1e3:8.2f} ms  {name[:100]}")
 
 
-def profile_phase(server, params, cfg, states, prompt, max_len) -> None:
-    """Where the time goes, after the main path: one prefill and one more
-    concurrent decode round (4 tenants, one coalesced step)."""
-    from repro_torch.models import model as M
-
-    device_profile("prefill (1 tenant, 4x512)",
-                   lambda: M.prefill(params, cfg, {"tokens": prompt}, max_len))
-
-    def decode_round():
-        futures = [server.submit(f"tenant{i}", {
-            "params": params, "tokens": st["tok"][:, None], "pos": st["pos"],
-            "caches": st["caches"]}) for i, st in enumerate(states)]
-        for f in futures:
-            f.result(timeout=600)
-
-    device_profile(f"decode round ({TENANTS} tenants x batch {BATCH})", decode_round)
-
-
-def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double(), b.double()
-    return ((a - b).norm() / b.norm()).item()
-
-
-def run_slice(rms, fa, registry) -> dict:
-    from repro_torch.configs import get_config
+def serve_path(label: str, cfg, params, kernels: dict) -> dict:
+    """One model's main path: 4 tenants prefill, then decode through the
+    ``RegionServer`` from 4 threads. Every kernel's count is set to 0 just
+    before and read just after (split into prefill and decode); then one
+    profiled prefill and decode round. Checks what every path must show."""
     from repro_torch.core import TDG
+    from repro_torch.core import lower
     from repro_torch.launch.serve import prompt_tokens
     from repro_torch.models import model as M
     from repro_torch.serving import RegionServer
     from repro_torch.training import make_serve_step
 
-    cfg = get_config("qwen2.5-3b")
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
-    torch.cuda.synchronize()
-    nparams = sum(p.numel() for p in params.parameters())
-    log(f"slice: {cfg.name} full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{nparams / 1e9:.3f}B params f32) initialized in {time.perf_counter() - t0:.1f} s")
-
     max_len = PROMPT + DECODE_STEPS + 1
     prompts = [prompt_tokens(cfg, BATCH, PROMPT, 1 + i, "cuda") for i in range(TENANTS)]
     decode = make_serve_step(cfg)
+    lower.clear_intern_cache()
 
     # ---- main path: counts zeroed just before, read just after
-    rms.reset_launches()
-    fa.reset_launches()
+    for mod in kernels.values():
+        mod.reset_launches()
     states, prefill_ms = [], []
     for i in range(TENANTS):
         torch.cuda.synchronize()
@@ -313,9 +442,9 @@ def run_slice(rms, fa, registry) -> dict:
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         states.append({"tok": tok, "pos": pos, "caches": caches, "out": [tok],
                        "logits": logits})
-    rms_prefill, fa_prefill = rms.launches, fa.launches
+    in_prefill = {k: mod.launches for k, mod in kernels.items()}
 
-    server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, name="chip-smoke")
+    server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, name=f"chip-smoke-{label}")
     errors: list[BaseException] = []
     try:
         for i in range(TENANTS):
@@ -345,71 +474,277 @@ def run_slice(rms, fa, registry) -> dict:
             t.join()
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
-        rms_total, fa_total = rms.launches, fa.launches
+        total = {k: mod.launches for k, mod in kernels.items()}
         # ---- end of the main path
         stats = server.stats()
         if errors:
             raise errors[0]
-        profile_phase(server, params, cfg, states, prompts[0], max_len)
+
+        device_profile(f"{label} prefill (1 tenant, {BATCH}x{PROMPT})",
+                       lambda: M.prefill(params, cfg, {"tokens": prompts[0]}, max_len))
+
+        def decode_round():
+            futures = [server.submit(f"tenant{i}", {
+                "params": params, "tokens": st["tok"][:, None], "pos": st["pos"],
+                "caches": st["caches"]}) for i, st in enumerate(states)]
+            for fut in futures:
+                fut.result(timeout=600)
+
+        device_profile(f"{label} decode round ({TENANTS} tenants x batch {BATCH})",
+                       decode_round)
     finally:
         server.close()
 
     m = stats["metrics"]
     toks = TENANTS * BATCH * DECODE_STEPS
-    log(f"prefill: {sum(prefill_ms):.1f} ms for {TENANTS} tenants x {BATCH}x{PROMPT} "
+    in_decode = {k: total[k] - in_prefill[k] for k in kernels}
+    log(f"{label} prefill: {sum(prefill_ms):.1f} ms for {TENANTS} tenants x {BATCH}x{PROMPT} "
         f"(per tenant {', '.join(f'{x:.1f}' for x in prefill_ms)} ms)")
-    log(f"decode:  {t_decode * 1e3:.1f} ms for {DECODE_STEPS} steps x {TENANTS} tenants "
-        f"({toks / t_decode:.1f} tok/s)")
-    log(f"server:  {m['batches']} batches, occupancy mean {m['batch_occupancy_mean']:.2f} "
-        f"max {m['batch_occupancy_max']}, {m['batch_fallbacks']} fallbacks, queue peak "
-        f"{m['queue_depth_peak']}; pool {stats['pool']}; intern {stats['intern']}")
-    log(f"latency: p50 {m['latency']['p50_s'] * 1e3:.2f} ms  p99 "
+    log(f"{label} decode:  {t_decode * 1e3:.1f} ms for {DECODE_STEPS} steps x {TENANTS} "
+        f"tenants ({toks / t_decode:.1f} tok/s)")
+    log(f"{label} server:  {m['batches']} batches, occupancy mean "
+        f"{m['batch_occupancy_mean']:.2f} max {m['batch_occupancy_max']}, "
+        f"{m['batch_fallbacks']} fallbacks, queue peak {m['queue_depth_peak']}; "
+        f"pool {stats['pool']}; intern {stats['intern']}")
+    log(f"{label} latency: p50 {m['latency']['p50_s'] * 1e3:.2f} ms  p99 "
         f"{m['latency']['p99_s'] * 1e3:.2f} ms")
-    log(f"launches: rmsnorm {rms_prefill} in prefill + {rms_total - rms_prefill} in decode; "
-        f"flash_attention {fa_prefill} in prefill + {fa_total - fa_prefill} in decode")
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{label} launches: " + "; ".join(f"{k} {in_prefill[k]} in prefill + {in_decode[k]} "
+                                          f"in decode" for k in kernels))
 
-    if not fa_prefill > 0:
-        raise AssertionError("flash attention kernel never launched in prefill")
-    if not (rms_prefill > 0 and rms_total > rms_prefill):
-        raise AssertionError("rmsnorm kernel did not launch in both prefill and decode")
     if m["batch_fallbacks"] != 0:
-        raise AssertionError(f"{m['batch_fallbacks']} batches fell back to serial replay")
+        raise AssertionError(f"{label}: {m['batch_fallbacks']} batches fell back to serial replay")
     if not m["batch_occupancy_max"] > 1:
-        raise AssertionError("no decode batch coalesced more than one tenant")
+        raise AssertionError(f"{label}: no decode batch coalesced more than one tenant")
     if stats["intern"]["hits"] < TENANTS - 1:
-        raise AssertionError(f"intern hits {stats['intern']['hits']} < {TENANTS - 1}")
+        raise AssertionError(f"{label}: intern hits {stats['intern']['hits']} < {TENANTS - 1}")
     if m["completed"] != TENANTS * DECODE_STEPS or m["failed"]:
-        raise AssertionError(f"completed {m['completed']}, failed {m['failed']}")
+        raise AssertionError(f"{label}: completed {m['completed']}, failed {m['failed']}")
     for st in states:
         gen = torch.stack(st["out"], dim=1)
         if gen.shape != (BATCH, DECODE_STEPS + 1) or not (
                 (gen >= 0) & (gen < cfg.vocab_size)).all():
-            raise AssertionError(f"bad generated tokens {gen.shape}")
-    log("tenant0 sample token ids:", torch.stack(states[0]["out"], 1)[0].tolist())
+            raise AssertionError(f"{label}: bad generated tokens {gen.shape}")
+    log(f"{label} tenant0 sample token ids:", torch.stack(states[0]["out"], 1)[0].tolist())
+    return {"states": states, "prompts": prompts, "max_len": max_len,
+            "prefill": in_prefill, "decode": in_decode}
 
-    # ---- kernels vs plain versions on the full model, tenant 0
+
+def logits_gap(params, cfg, prompt, max_len, registry, first_tok,
+               kernel_ctx=contextlib.nullcontext, plain_ctx=contextlib.nullcontext):
+    """Tenant 0's prefill logits and one decode step, with the kernels and
+    with the plain versions (each run inside its context): (prefill rel L2,
+    max abs, decode rel L2, max abs)."""
+    from repro_torch.models import model as M
+
+    def run():
+        logits, caches, pos = M.prefill(params, cfg, {"tokens": prompt}, max_len)
+        dec, _ = M.decode_step(params, cfg, first_tok[:, None], pos, caches)
+        return logits[..., :cfg.vocab_size], dec[..., :cfg.vocab_size]
+
     with torch.no_grad():
-        logits_k = states[0]["logits"]
+        with kernel_ctx():
+            pre_k, dec_k = run()
+        with plain_ctx(), registry.kernel_mode_scope("ref"):
+            pre_r, dec_r = run()
+    if not torch.isfinite(pre_k).all() or not torch.isfinite(dec_k).all():
+        raise AssertionError(f"{cfg.name}: logits not finite")
+    return (rel_l2(pre_k, pre_r), (pre_k - pre_r).abs().max().item(),
+            rel_l2(dec_k, dec_r), (dec_k - dec_r).abs().max().item())
+
+
+def check_gap(label: str, gap, limit: float) -> None:
+    pre, pre_abs, dec, dec_abs = gap
+    log(f"{label} logits kernels vs plain (tenant 0): prefill rel L2 {pre:.3g} (max abs "
+        f"{pre_abs:.3g}), decode step rel L2 {dec:.3g} (max abs {dec_abs:.3g}); limit {limit}")
+    if not (pre <= limit and dec <= limit):
+        raise AssertionError(f"{label}: kernel and plain logits differ by more than "
+                             f"rel L2 {limit}")
+
+
+def init_model(cfg):
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {nparams / 1e9:.3f}B "
+        f"params f32, initialized in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def run_dense(kernels, registry) -> dict:
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2.5-3b")
+    params = init_model(cfg)
+    run = serve_path("dense", cfg, params, kernels)
+    if not run["prefill"]["flash_attention"] > 0:
+        raise AssertionError("flash attention kernel never launched in prefill")
+    if not (run["prefill"]["rmsnorm"] > 0 and run["decode"]["rmsnorm"] > 0):
+        raise AssertionError("rmsnorm kernel did not launch in both prefill and decode")
+    gap = logits_gap(params, cfg, run["prompts"][0], run["max_len"], registry,
+                     run["states"][0]["out"][0])
+    check_gap("dense", gap, 2e-2)
+    return run
+
+
+@contextlib.contextmanager
+def recorded_routing(out: list):
+    """Record each MoE layer's top-k expert ids, in call order."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+
+    def recording(p, cfg, xt):
+        r = orig(p, cfg, xt)
+        out.append(r[2])
+        return r
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+@contextlib.contextmanager
+def pinned_routing(recorded: list, own: list):
+    """Make each MoE layer take the recorded top-k expert ids (in call
+    order), with gates from its own probabilities; ``own`` gets the ids its
+    own router would have picked."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+    ids = iter(recorded)
+
+    def pinned(p, cfg, xt):
+        probs, _, own_idx = orig(p, cfg, xt)
+        own.append(own_idx)
+        idx = next(ids)
+        g = probs.gather(1, idx)
+        return probs, g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), idx
+
+    moe.route = pinned
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def routing_diff(a: list, b: list) -> tuple[int, int]:
+    """(top-k choices that differ, total choices) between two recorded runs."""
+    diff = total = 0
+    for ea, eb in zip(a, b):
+        same = (ea[:, :, None] == eb[:, None, :]).any(-1).sum().item()
+        diff += ea.numel() - same
+        total += ea.numel()
+    return diff, total
+
+
+def run_moe(kernels, registry) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=MOE_LAYERS)
+    params = init_model(cfg)
+    run = serve_path("moe", cfg, params, kernels)
+    per_tenant = 3 * cfg.num_layers
+    if run["prefill"]["grouped_matmul"] != TENANTS * per_tenant:
+        raise AssertionError(f"grouped matmul launched {run['prefill']['grouped_matmul']} "
+                             f"times in prefill, not {per_tenant} a tenant")
+    if not run["decode"]["grouped_matmul"] > 0:
+        raise AssertionError("grouped matmul kernel never launched in decode")
+    if not (run["prefill"]["flash_attention"] > 0 and run["prefill"]["rmsnorm"] > 0):
+        raise AssertionError("flash attention or rmsnorm never launched in MoE prefill")
+
+    prompt, first = run["prompts"][0], run["states"][0]["out"][0]
+    n = cfg.num_layers
+    # (a) f32, same weights: the kernels against the plain versions, the
+    # plain run pinned to the kernel run's expert choices (near-tied top-8
+    # choices flip even in f32, and one flip moves a decode step's logits
+    # by ~1%: unpinned, that would test the router's ties, not the kernels)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    routes, own = [], []   # kernel run's ids (prefill, decode); plain run's own
+    gap = logits_gap(params, cfg32, prompt, run["max_len"], registry, first,
+                     kernel_ctx=lambda: recorded_routing(routes),
+                     plain_ctx=lambda: pinned_routing(routes, own))
+    for step, at in (("prefill", 0), ("decode step", n)):
+        diff, total = routing_diff(routes[at:at + n], own[at:at + n])
+        log(f"moe f32 {step}: the plain run's own router would pick {diff} of {total} "
+            f"top-{cfg.top_k} expert choices differently (pinned to the kernel run's)")
+    check_gap("moe f32", gap, 1e-3)
+    # (b) bf16, layer 0's MoE on one input; the router is a plain product of
+    # identical inputs in both runs, so the routing is identical
+    h = randn(BATCH, PROMPT, cfg.d_model, dtype=torch.bfloat16,
+              gen=torch.Generator("cuda").manual_seed(7))
+    layer0 = params.layers[0].moe
+    with torch.no_grad():
+        out_k, aux_k = moe.moe_apply(layer0, cfg, h)
         with registry.kernel_mode_scope("ref"):
-            logits_r, caches_r, pos_r = M.prefill(params, cfg, {"tokens": prompts[0]}, max_len)
-        tok0 = states[0]["out"][0]
-        if logits_k.shape != (BATCH, 1, cfg.padded_vocab) or not torch.isfinite(
-                logits_k[..., :cfg.vocab_size]).all():
-            raise AssertionError(f"prefill logits {tuple(logits_k.shape)} not finite")
-        pre_err = rel_l2(logits_k[..., :cfg.vocab_size], logits_r[..., :cfg.vocab_size])
-        pre_abs = (logits_k - logits_r)[..., :cfg.vocab_size].abs().max().item()
-        _, caches_k, pos_k = M.prefill(params, cfg, {"tokens": prompts[0]}, max_len)
-        dec_k, _ = M.decode_step(params, cfg, tok0[:, None], pos_k, caches_k)
+            out_r, aux_r = moe.moe_apply(layer0, cfg, h)
+    layer_err = rel_l2(out_k, out_r)
+    log(f"moe bf16 layer 0: rel L2 {layer_err:.3g} (max abs "
+        f"{(out_k.float() - out_r.float()).abs().max().item():.3g}), aux {aux_k.item():.6g} "
+        f"vs {aux_r.item():.6g}; limit 2e-2")
+    if not (layer_err <= 2e-2 and torch.isfinite(out_k.float()).all()):
+        raise AssertionError("moe bf16 layer 0: kernels and plain versions disagree")
+    # (c) bf16 whole model, unpinned: printed, no limit
+    routes, own = [], []
+    pre, _, dec, _ = logits_gap(params, cfg, prompt, run["max_len"], registry, first,
+                                kernel_ctx=lambda: recorded_routing(routes),
+                                plain_ctx=lambda: recorded_routing(own))
+    diff, total = routing_diff(routes[:n], own[:n])
+    log(f"moe bf16 whole model (unpinned, no limit): prefill logits rel L2 {pre:.3g}, "
+        f"decode step {dec:.3g}; {diff} of {total} prefill expert choices differ")
+    return run
+
+
+def run_mamba(kernels, registry) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("mamba2-370m")
+    params = init_model(cfg)
+    run = serve_path("mamba2", cfg, params, kernels)
+    if run["prefill"]["ssd_intra_chunk"] != TENANTS * cfg.num_layers:
+        raise AssertionError(f"SSD launched {run['prefill']['ssd_intra_chunk']} times in "
+                             f"prefill, not {cfg.num_layers} a tenant")
+    if run["decode"]["ssd_intra_chunk"] != 0:
+        raise AssertionError("SSD kernel launched in decode (the recurrence runs there)")
+    if not (run["prefill"]["rmsnorm"] > 0 and run["decode"]["rmsnorm"] > 0):
+        raise AssertionError("rmsnorm kernel did not launch in both prefill and decode")
+    prompt, first = run["prompts"][0], run["states"][0]["out"][0]
+    # (a) f32, same weights: the kernels against the plain versions
+    check_gap("mamba2 f32", logits_gap(params, dataclasses.replace(cfg, dtype="float32"),
+                                       prompt, run["max_len"], registry, first), 1e-3)
+    # (b) bf16, layer 0's mixer on one input, from a zero state (the SSD path)
+    h = randn(BATCH, PROMPT, cfg.d_model, dtype=torch.bfloat16,
+              gen=torch.Generator("cuda").manual_seed(7))
+    state = ssm.init_ssm_state(cfg, BATCH, "cuda")
+    with torch.no_grad():
+        out_k, st_k = ssm.ssm_apply(params.layers[0].ssm, cfg, h, state)
         with registry.kernel_mode_scope("ref"):
-            dec_r, _ = M.decode_step(params, cfg, tok0[:, None], pos_r, caches_r)
-        dec_err = rel_l2(dec_k[..., :cfg.vocab_size], dec_r[..., :cfg.vocab_size])
-        dec_abs = (dec_k - dec_r)[..., :cfg.vocab_size].abs().max().item()
-    log(f"logits kernels vs plain (tenant 0): prefill rel L2 {pre_err:.3g} (max abs "
-        f"{pre_abs:.3g}), decode step rel L2 {dec_err:.3g} (max abs {dec_abs:.3g})")
-    if pre_err > 2e-2 or dec_err > 2e-2:
-        raise AssertionError("kernel and plain logits differ by more than rel L2 2e-2")
-    return {"rmsnorm": rms_total, "flash_attention": fa_total}
+            out_r, st_r = ssm.ssm_apply(params.layers[0].ssm, cfg, h, state)
+    layer_err, state_err = rel_l2(out_k, out_r), rel_l2(st_k["ssd"], st_r["ssd"])
+    log(f"mamba2 bf16 layer 0: output rel L2 {layer_err:.3g}, SSD state rel L2 "
+        f"{state_err:.3g}; limit 2e-2")
+    if not (layer_err <= 2e-2 and state_err <= 2e-2 and torch.isfinite(out_k.float()).all()):
+        raise AssertionError("mamba2 bf16 layer 0: kernels and plain versions disagree")
+    # (c) bf16 whole model, and its first 3, 12 and 24 layers: printed, no
+    # limit (one-ulp differences grow with depth through the random-weight stack)
+    layers, gaps = params.layers, []
+    try:
+        for depth in (3, 12, 24, cfg.num_layers):
+            params.layers = torch.nn.ModuleList(list(layers)[:depth])
+            pre, _, dec, _ = logits_gap(params, dataclasses.replace(cfg, num_layers=depth),
+                                        prompt, run["max_len"], registry, first)
+            gaps.append(f"{depth} layers {pre:.3g} / {dec:.3g}")
+    finally:
+        params.layers = layers
+    log(f"mamba2 bf16 logits rel L2 by depth, prefill / decode step (no limit): "
+        + ", ".join(gaps))
+    return run
 
 
 def main() -> int:
@@ -421,7 +756,9 @@ def main() -> int:
     try:
         from repro_torch.kernels import _build, ref, registry
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import moe_gmm as gmm
         from repro_torch.kernels import rmsnorm as rms
+        from repro_torch.kernels import ssd_scan as ssd
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -432,9 +769,9 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     seconds = _build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall "
+    log(f"build: {time.perf_counter() - t_start:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()) or 'cached'})")
     for name in _build.SOURCES:   # ptxas -v: per-kernel registers and spills
         text = _build.log_path(name).read_text() if _build.log_path(name).exists() else ""
@@ -445,13 +782,31 @@ def main() -> int:
                 f"spill stores up to {max(spills, default=0)} bytes")
 
     gen = torch.Generator("cuda").manual_seed(1234)
-    kernels = [check_rmsnorm(rms, ref, gen), check_attention(fa, ref, gen)]
-    launches = run_slice(rms, fa, registry)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if not k["launches"] > 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
-    log(json.dumps({"kernels": kernels, "card": card}))
+    t0 = time.perf_counter()
+    entries = [check_rmsnorm(rms, ref, gen), check_attention(fa, ref, gen),
+               check_grouped_matmul(gmm, ref, gen), check_ssd(ssd, ref, gen)]
+    log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
+
+    kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm,
+               "ssd_intra_chunk": ssd}
+    runs = {}
+    for label, run_fn in (("dense", run_dense), ("moe", run_moe), ("mamba2", run_mamba)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = run_fn(kernels, registry)
+        runs[label] = {k: run["prefill"][k] + run["decode"][k] for k in kernels}
+        del run
+        log(f"path {label}: {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    for e in entries:
+        e["launches_by_path"] = {label: counts[e["name"]] for label, counts in runs.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+        if not e["launches"] > 0:
+            raise AssertionError(f"{e['name']} never launched on the main path")
+    log(f"total {time.perf_counter() - t_start:.1f} s after the device check")
+    log(json.dumps({"kernels": entries, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch_id)``.
 
-Only the dense ``qwen2.5-3b`` is ported so far; the other architectures of
-the reference wait on their model families (see ROADMAP.md).
+Ported so far: the dense ``qwen2.5-3b``, the MoE ``qwen3-moe-30b-a3b`` and
+the SSM ``mamba2-370m``; the other architectures of the reference wait on
+their model families (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from .base import ModelConfig, reduced
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

@@ -1,5 +1,5 @@
-"""Model configuration: the dense-family subset of ``repro.configs.base``
-(swiglu MLP, no qk-norm: what qwen2.5-3b uses).
+"""Model configuration: the subset of ``repro.configs.base`` that the ported
+families use (dense, MoE and SSM; swiglu MLPs, optional qk-norm).
 
 Configs are plain frozen dataclasses, as in the reference. Dtypes are kept
 as names (``"bfloat16"``, ``"float32"``) so a config stays hashable and
@@ -34,8 +34,30 @@ class ModelConfig:
     attn_chunk: int = 0                     # chunked-local chunk size
     global_attn_every: int = 0              # every k-th layer is full attn
     qkv_bias: bool = False
+    qk_norm: bool = False
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0              # GLM partial rotary
+
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                       # per-expert hidden (0 -> d_ff)
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_impl: str = "gspmd"                 # "gspmd" | "shard_map" (needs a mesh)
+
+    # SSM (Mamba-2)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
+    ssm_split_proj: bool = False            # separate z/x/B/C/dt projections
+
+    # hybrid (Hymba): SSM runs in parallel with attention inside each block
+    hybrid_ssm: bool = False
 
     # embeddings / scaling (MiniCPM mu-parametrization)
     tie_embeddings: bool = False
@@ -65,6 +87,18 @@ class ModelConfig:
         mult = 256
         return (self.vocab_size + mult - 1) // mult * mult
 
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_inner // self.ssm_headdim
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
 
 def reduced(config: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the reference's sizes)."""
@@ -78,6 +112,15 @@ def reduced(config: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=256,
         window=min(config.window, 32) if config.window else 0,
         attn_chunk=min(config.attn_chunk, 32) if config.attn_chunk else 0,
+        num_experts=min(config.num_experts, 4),
+        top_k=min(config.top_k, 2),
+        moe_d_ff=96 if config.num_experts else 0,
+        # drop-free capacity: keeps smoke tests deterministic across
+        # different token counts (prefill vs teacher-forced forward)
+        capacity_factor=4.0,
+        ssm_state=min(config.ssm_state, 16) if config.ssm_state else 0,
+        ssm_headdim=16,
+        ssm_chunk=16,
         dtype="float32",
         name=config.name + "-smoke",
     )

@@ -1,8 +1,10 @@
 """Kernel substrate: registry, plain versions and the CUDA kernels' wrappers.
 
-The wrapper modules are ``kernels.rmsnorm`` and ``kernels.flash_attention``;
-each keeps its kernel's launch counter (``launches``).
+The wrapper modules are ``kernels.rmsnorm``, ``kernels.flash_attention``,
+``kernels.moe_gmm`` and ``kernels.ssd_scan``; each keeps its kernel's
+launch counter (``launches``).
 """
-from . import flash_attention, ops, ref, registry, rmsnorm
+from . import flash_attention, moe_gmm, ops, ref, registry, rmsnorm, ssd_scan
 
-__all__ = ["flash_attention", "ops", "ref", "registry", "rmsnorm"]
+__all__ = ["flash_attention", "moe_gmm", "ops", "ref", "registry", "rmsnorm",
+           "ssd_scan"]

@@ -1,0 +1,103 @@
+"""Grouped (per-expert) matmul: wrapper of ``csrc/grouped_matmul.cu``.
+
+Replaces ``repro.kernels.moe_gmm.grouped_matmul`` (see the source note in
+the ``.cu`` file for the bound and the design). CUDA tensors launch the
+kernel through the ``repro_torch::grouped_matmul`` custom op; CPU tensors
+take :func:`ref.grouped_matmul_ref`. Under ``torch.func.vmap`` with shared
+weights (the server's coalesced decode) the vmapped dim folds into C, so
+one launch serves the whole batch.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from . import _build
+from .ref import grouped_matmul_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Kernel launches since the last reset (one per launch, nowhere else).
+launches = 0
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+@functools.cache
+def _launcher():
+    fn = _build.library("grouped_matmul").grouped_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"want x (E, C, d) and w (E, d, f); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"grouped matmul kernel takes one of float32/bfloat16 for x and w; "
+                        f"got {x.dtype}, {w.dtype}")
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError("grouped matmul kernel needs x and w on one CUDA device")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped matmul kernel needs contiguous x and w")
+
+
+def _vec(t: torch.Tensor, row: int) -> int:
+    """Rows may be read as 16-byte vectors (bf16: 8 elements)."""
+    return int(row % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
+@torch.library.custom_op("repro_torch::grouped_matmul", mutates_args=(),
+                         device_types="cuda")
+def _grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    global launches
+    _check(x, w)
+    E, C, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    err = _launcher()(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
+                      _DTYPES[x.dtype], _vec(x, d), _vec(w, f),
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"grouped matmul kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        launches += 1
+    return out
+
+
+@_grouped_matmul_cuda.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+@_grouped_matmul_cuda.register_vmap
+def _(info, in_dims, x, w):
+    x_dim, w_dim = in_dims
+    n = info.batch_size
+    x = x.movedim(x_dim, 0) if x_dim is not None else x.expand(n, *x.shape)
+    if w_dim is not None:   # per-member weights: one launch per member
+        w = w.movedim(w_dim, 0)
+        return torch.stack([_grouped_matmul_cuda(x[i].contiguous(), w[i].contiguous())
+                            for i in range(n)]), 0
+    _, E, C, d = x.shape    # shared weights: (n, E, C, d) -> (E, n * C, d)
+    out = _grouped_matmul_cuda(x.movedim(0, 1).reshape(E, n * C, d).contiguous(), w)
+    return out.reshape(E, n, C, -1).movedim(1, 0), 0
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """CUDA tensors launch the kernel (or raise); CPU tensors take the plain version."""
+    if x.device.type == "cuda":
+        return _grouped_matmul_cuda(x, w)
+    return grouped_matmul_ref(x, w)

@@ -1,17 +1,20 @@
 """Registry-driven dispatch for the ported ops (port of ``repro.kernels.ops``).
 
-``attention`` and ``rmsnorm`` keep the reference's signatures and resolve
-their substrate through :mod:`registry`: ``cuda`` is the hand-written
-kernel, ``ref`` the plain PyTorch version, and ``auto`` picks by the input
-tensors' device. ``ssd`` and ``grouped_matmul`` come with their model
-families (ROADMAP.md, queue B).
+``attention``, ``ssd``, ``grouped_matmul`` and ``rmsnorm`` keep the
+reference's signatures and resolve their substrate through
+:mod:`registry`: ``cuda`` is the hand-written kernel (for ``ssd``, the
+intra-chunk kernel inside :func:`ssd_scan.ssd`), ``ref`` the plain PyTorch
+version, and ``auto`` picks by the input tensors' device.
 """
 from __future__ import annotations
 
 from . import flash_attention as _fa
+from . import moe_gmm as _gmm
 from . import ref as _ref
 from . import registry
 from . import rmsnorm as _rms
+from . import ssd_scan as _ssd
+
 
 def _attention_ref(q, k, v, *, causal=True, window=None, chunk=None,
                    scale=None, q_offset=0, q_chunk=2048):
@@ -29,8 +32,18 @@ def _attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
                                chunk=chunk, scale=scale, q_offset=q_offset)
 
 
+def _ssd_ref(x, dt, A, Bm, Cm, D=None, init_state=None, *, chunk=128):
+    """Blockwise plain SSD (chunk clamped to the sequence length)."""
+    return _ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D=D, init_state=init_state,
+                                chunk=min(chunk, x.shape[1]))
+
+
 registry.register("attention", "ref", _attention_ref)
 registry.register("attention", "cuda", _attention_cuda)
+registry.register("ssd", "ref", _ssd_ref)
+registry.register("ssd", "cuda", _ssd.ssd)
+registry.register("grouped_matmul", "ref", _ref.grouped_matmul_ref)
+registry.register("grouped_matmul", "cuda", _gmm.grouped_matmul)
 registry.register("rmsnorm", "ref", _ref.rmsnorm_ref)
 registry.register("rmsnorm", "cuda", _rms.rmsnorm)
 
@@ -40,6 +53,15 @@ def attention(q, k, v, *, causal=True, window=None, chunk=None, scale=None,
     return registry.dispatch("attention", q, k, v, causal=causal,
                              window=window, chunk=chunk, scale=scale,
                              q_offset=q_offset, q_chunk=q_chunk)
+
+
+def ssd(x, dt, A, Bm, Cm, D=None, init_state=None, *, chunk=128):
+    return registry.dispatch("ssd", x, dt, A, Bm, Cm, D=D,
+                             init_state=init_state, chunk=chunk)
+
+
+def grouped_matmul(x, w):
+    return registry.dispatch("grouped_matmul", x, w)
 
 
 def rmsnorm(x, w, eps=1e-6, residual=None):

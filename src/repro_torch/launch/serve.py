@@ -5,10 +5,13 @@ modes wait for the cluster tier, ROADMAP.md queue A item 14). Runs on the
 CUDA card; ``--device cpu`` is the only way onto the CPU, and with no card
 and no ``--device cpu`` it raises.
 
+``--arch`` is one of the ported configs: ``qwen2.5-3b`` (dense),
+``qwen3-moe-30b-a3b`` (MoE) and ``mamba2-370m`` (SSM).
+
 * **Single-stream** (default): one prompt batch, prefill, then a greedy
   decode loop.
 
-      PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
           --batch 4 --prompt-len 64 --gen 32
 
 * **Multi-tenant server** (``--server``): N tenants each own a decode-step
@@ -20,11 +23,14 @@ and no ``--device cpu`` it raises.
       PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
           --server --tenants 4
 
-``--smoke`` runs the reduced config (2 layers, d_model 64).
+``--smoke`` runs the reduced config (2 layers, d_model 64). The full
+qwen3-moe-30b-a3b keeps f32 params (122 GB at 48 layers), so on one 80 GB
+card pass ``--layers 16``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import threading
 import time
 
@@ -32,7 +38,9 @@ import torch
 
 from ..configs import ARCHS, get_config, reduced
 from ..kernels import flash_attention as _fa
+from ..kernels import moe_gmm as _gmm
 from ..kernels import rmsnorm as _rms
+from ..kernels import ssd_scan as _ssd
 from ..models import init_params, prefill
 from ..training import make_serve_step
 
@@ -61,7 +69,8 @@ def prompt_tokens(cfg, batch: int, prompt_len: int, seed: int,
 
 def _print_kernels() -> None:
     print(f"kernels: rmsnorm {_rms.launches} launches, flash_attention "
-          f"{_fa.launches} launches")
+          f"{_fa.launches}, grouped_matmul {_gmm.launches}, ssd_intra_chunk "
+          f"{_ssd.launches}")
 
 
 def _run_single_stream(args, cfg, params, device) -> int:
@@ -176,6 +185,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCHS), default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
@@ -196,6 +207,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     with torch.no_grad():
         params = init_params(cfg, torch.Generator(device).manual_seed(args.seed),
                              device)

@@ -1,13 +1,13 @@
 """Building blocks: ``nn.Module`` parameter holders and plain apply functions.
 
-Port of the subset of ``repro.models.layers`` that the dense swiglu
-decoder (qwen2.5-3b) runs; qk-norm and the gelu/relu² MLPs come with the
-configs that use them. Each module holds the parameters the reference
-keeps in a pytree dict, under the same names (``Linear.w`` is
-``(d_in, d_out)`` as in JAX, so ``y = x @ w``); each ``*_apply`` /
-``linear`` / ``rmsnorm`` is a plain function of a module and tensors.
-Parameters are inference-only (``requires_grad=False``): the slice serves
-and does not train. Compute dtype is ``cfg.dtype``, params
+Port of the subset of ``repro.models.layers`` that the ported decoders
+run: GQA attention with optional qk-norm (qwen3-moe) and the swiglu MLP;
+the gelu/relu² MLPs come with the configs that use them. Each module
+holds the parameters the reference keeps in a pytree dict, under the same
+names (``Linear.w`` is ``(d_in, d_out)`` as in JAX, so ``y = x @ w``);
+each ``*_apply`` / ``linear`` / ``rmsnorm`` is a plain function of a
+module and tensors. Parameters are inference-only
+(``requires_grad=False``): the port serves and does not train. Compute dtype is ``cfg.dtype``, params
 ``cfg.param_dtype``, with f32 softmax and norms.
 
 The KV cache is updated out of place (``scatter``), never in place, so the
@@ -131,6 +131,8 @@ class Attention(nn.Module):
         self.wk = Linear(d, Hkv * hd, bias=cfg.qkv_bias, dtype=dt, device=device)
         self.wv = Linear(d, Hkv * hd, bias=cfg.qkv_bias, dtype=dt, device=device)
         self.wo = Linear(H * hd, d, dtype=dt, device=device)
+        self.qnorm = RMSNorm(hd, dt, device) if cfg.qk_norm else None
+        self.knorm = RMSNorm(hd, dt, device) if cfg.qk_norm else None
 
 
 def layer_attn_pattern(cfg: ModelConfig, layer_idx: int) -> tuple[str, int]:
@@ -156,6 +158,9 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     q = linear(p.wq, x, cdt).reshape(B, S, H, hd)
     k = linear(p.wk, x, cdt).reshape(B, S, Hkv, hd)
     v = linear(p.wv, x, cdt).reshape(B, S, Hkv, hd)
+    if p.qnorm is not None:
+        q = rmsnorm(p.qnorm, q)
+        k = rmsnorm(p.knorm, k)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
         k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
@@ -234,9 +239,9 @@ def _cached_attention(cfg, q, k_new, v_new, positions, cache, *,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, d_ff: int | None = None):
         super().__init__()
-        d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_torch_dtype
+        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.param_torch_dtype
         self.up = Linear(d, f, dtype=dt, device=device)
         self.down = Linear(f, d, dtype=dt, device=device)
         self.gate = Linear(d, f, dtype=dt, device=device)

@@ -1,6 +1,7 @@
 """Model API: init, logits, and prefill / decode for serving.
 
-Port of the dense serving path of ``repro.models.model``. The decode step
+Port of the serving path of ``repro.models.model`` for the dense, MoE and
+SSM families. The decode step
 is the payload that the taskgraph runtime records and replays: shape
 stable and free of side effects (caches are returned, never written in
 place), so one step can be ``torch.func.vmap``-ed across tenants.
@@ -15,6 +16,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import ssm as S
 from . import transformer as T
 
 
@@ -38,14 +40,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str | None = None) -> Model:
     """Random weights from ``generator`` (which must live on ``device``).
 
-    Dense weights are truncated normals with std fan_in^-1/2, norms are ones
-    and biases zeros, as in the reference; the numbers differ from JAX's for
-    the same seed, so parity tests carry weights over with
-    :func:`params_from_jax`.
+    Dense weights (linear, embedding, expert and conv weights: every module
+    with an ``init_``) are truncated normals with std fan_in^-1/2; norms are
+    ones, biases zeros and the SSM's A_log, D and dt_bias constants, as in
+    the reference. The numbers differ from JAX's for the same seed, so
+    parity tests carry weights over with :func:`params_from_jax`.
     """
     model = Model(cfg, device)
     for mod in model.modules():
-        if isinstance(mod, (L.Linear, L.Embedding)):
+        if hasattr(mod, "init_"):
             mod.init_(generator)
     return model
 
@@ -56,7 +59,9 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
 
     ``np_params`` is the JAX tree as numpy arrays, layers stacked on a
     leading ``L`` axis: ``model.layers.3.attn.wq.w`` takes
-    ``np_params["layers"]["attn"]["wq"]["w"][3]``.
+    ``np_params["layers"]["attn"]["wq"]["w"][3]``, and likewise
+    ``layers.*.moe.router.w``, ``layers.*.moe.experts.{up,gate,down}.w``,
+    ``layers.*.attn.{qnorm,knorm}.scale``, ``layers.*.ssm.*`` and ``head``.
     """
     model = Model(cfg, device)
     for name, prm in model.named_parameters():
@@ -81,14 +86,15 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
 def hidden_states(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor | None = None, mode: str = "train",
                   caches: list | None = None):
+    """Returns (final-norm hidden states, summed MoE aux loss, caches)."""
     B, Sq = tokens.shape
     if positions is None:
         positions = torch.arange(Sq, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, Sq)
     x = L.embed(params.embed, tokens, cfg.compute_dtype) * cfg.embed_scale
-    x, caches = T.decoder_stack(params.layers, cfg, x, positions, mode=mode,
-                                caches=caches)
-    return L.rmsnorm(params.final_norm, x), caches
+    x, aux, caches = T.decoder_stack(params.layers, cfg, x, positions, mode=mode,
+                                     caches=caches)
+    return L.rmsnorm(params.final_norm, x), aux, caches
 
 
 def _logits(params: Model, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -105,6 +111,11 @@ def _logits(params: Model, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tens
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
+    """Per layer: ``{"ssm": {"conv", "ssd"}}`` (SSM family) or
+    ``{"attn": {"k", "v", "pos"}}``."""
+    if cfg.family == "ssm":
+        return [{"ssm": S.init_ssm_state(cfg, batch, device)}
+                for _ in range(cfg.num_layers)]
     return [{"attn": L.init_attn_cache(cfg, i, batch, max_len, device)}
             for i in range(cfg.num_layers)]
 
@@ -114,7 +125,7 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int):
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     caches = init_caches(cfg, B, max_len, tokens.device)
-    h, caches = hidden_states(params, cfg, tokens, mode="prefill", caches=caches)
+    h, _, caches = hidden_states(params, cfg, tokens, mode="prefill", caches=caches)
     logits = _logits(params, cfg, h[:, -1:])
     return logits, caches, torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
 
@@ -123,8 +134,8 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
                 pos: torch.Tensor, caches: list):
     """One token per sequence: tokens (B, 1), pos (B,). Returns
     (logits (B, 1, V), new_caches)."""
-    h, caches = hidden_states(params, cfg, tokens, positions=pos[:, None],
-                              mode="decode", caches=caches)
+    h, _, caches = hidden_states(params, cfg, tokens, positions=pos[:, None],
+                                 mode="decode", caches=caches)
     return _logits(params, cfg, h), caches
 
 

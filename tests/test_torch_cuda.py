@@ -7,8 +7,9 @@ installed. On the card, from the repository root:
 
 (``--noconftest``: the shared ``tests/conftest.py`` imports the JAX package.)
 Each kernel is held against its plain version (atol = rtol = 2e-5 in f32,
-2e-2 in bf16), under ``torch.func.vmap`` too, and the reduced model is run
-with the kernels and with the plain versions.
+2e-2 in bf16; grouped matmul at atol = TOL·d, rtol = TOL; SSD at 1e-3),
+under ``torch.func.vmap`` too, and the reduced models of the three ported
+families are run with the kernels and with the plain versions.
 """
 import pytest
 
@@ -16,8 +17,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ref, registry  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +66,37 @@ def test_rmsnorm(dtype, residual):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f", [(4, 64, 128, 128), (3, 37, 100, 60), (8, 8, 2048, 768)])
+def test_grouped_matmul(dtype, E, C, d, f):
+    g = torch.Generator("cuda").manual_seed(0)
+    x, w = _randn(g, E, C, d, dtype=dtype) * 0.3, _randn(g, E, d, f, dtype=dtype) * 0.3
+    before = gmm.launches
+    got = gmm.grouped_matmul(x, w)
+    assert gmm.launches == before + 1
+    torch.testing.assert_close(got.float(), ref.grouped_matmul_ref(x, w).float(),
+                               atol=TOL[dtype] * d, rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("S,H,P,G,N,chunk", [(128, 4, 32, 2, 16, 32), (100, 4, 64, 1, 128, 128),
+                                             (12, 2, 16, 1, 8, 16)])
+def test_ssd(S, H, P, G, N, chunk):
+    g = torch.Generator("cuda").manual_seed(0)
+    x = _randn(g, 2, S, H, P)
+    dt = _randn(g, 2, S, H).abs() * 0.1 + 0.01
+    A = -_randn(g, H).abs() - 0.1
+    Bm, Cm = _randn(g, 2, S, G, N) * 0.5, _randn(g, 2, S, G, N) * 0.5
+    h0, D = _randn(g, 2, H, P, N) * 0.3, _randn(g, H)
+    before = ssd_scan.launches
+    y, h = ssd_scan.ssd(x, dt, A, Bm, Cm, D=D, init_state=h0, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    for want_y, want_h in (ref.ssd_ref(x, dt, A, Bm, Cm, D=D, init_state=h0),
+                           ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D=D, init_state=h0,
+                                               chunk=min(chunk, S))):
+        torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(h, want_h, atol=1e-3, rtol=1e-3)
+
+
 def test_vmap_rules_launch_once_and_agree():
     g = torch.Generator("cuda").manual_seed(1)
     x, w = _randn(g, 4, 5, 128), _randn(g, 128)
@@ -77,6 +111,25 @@ def test_vmap_rules_launch_once_and_agree():
     assert fa.launches == before + 1
     want = torch.stack([ref.attention_ref(q[i], k, k) for i in range(3)])
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    x, w = _randn(g, 3, 4, 8, 64), _randn(g, 4, 64, 32)          # shared w: folds into C
+    before = gmm.launches
+    got = torch.func.vmap(lambda a: gmm.grouped_matmul(a, w))(x)
+    assert gmm.launches == before + 1
+    torch.testing.assert_close(got, torch.stack([ref.grouped_matmul_ref(x[i], w)
+                                                 for i in range(3)]), atol=1e-4, rtol=2e-5)
+    ws = _randn(g, 3, 4, 64, 32)                                  # per-member w: a launch each
+    before = gmm.launches
+    got = torch.func.vmap(gmm.grouped_matmul)(x, ws)
+    assert gmm.launches == before + 3
+    torch.testing.assert_close(got, torch.stack([ref.grouped_matmul_ref(x[i], ws[i])
+                                                 for i in range(3)]), atol=1e-4, rtol=2e-5)
+    xs, b, lda = _randn(g, 3, 4, 32, 16), _randn(g, 2, 32, 8), -_randn(g, 3, 4, 32).abs()
+    before = ssd_scan.launches
+    got = torch.func.vmap(lambda a, l_: ssd_scan.ssd_intra_chunk(a, b, b, l_, 16))(xs, lda)
+    assert ssd_scan.launches == before + 1
+    for i in range(3):
+        for o, want in zip(got, ref.ssd_intra_chunk_ref(xs[i], b, b, lda[i], 16)):
+            torch.testing.assert_close(o[i], want, atol=1e-4, rtol=1e-4)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -86,10 +139,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(4, 16, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         rms.rmsnorm(x.t(), torch.ones(4, device="cuda"))
+    x = torch.zeros(2, 8, 16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm.grouped_matmul(x, torch.zeros(2, 4, 16, device="cuda").transpose(1, 2))
+    xs = torch.zeros(2, 512, 16, device="cuda")
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan.ssd_intra_chunk(xs, xs, xs, xs[..., 0], 256)
 
 
-def test_reduced_model_kernels_match_plain_versions():
-    cfg = reduced(get_config("qwen2.5-3b"))
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "mamba2-370m"])
+def test_reduced_model_kernels_match_plain_versions(arch):
+    cfg = reduced(get_config(arch))
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
     tokens = torch.randint(2, cfg.vocab_size, (2, 40), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(1))

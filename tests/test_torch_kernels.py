@@ -3,8 +3,10 @@
 The port's plain versions (what CPU tensors take) are held against the JAX
 Pallas kernels run in interpret mode, on the same numpy inputs, over the
 cases of ``tests/test_kernels.py``: atol = rtol = 2e-5 in f32, 2e-2 in
-bf16. Also: the registry's mode rules, the CUDA wrappers' vmap rules (on
-meta tensors) and input checks. The CUDA kernels themselves are held
+bf16; grouped matmul at atol = ATOL·d, rtol = ATOL; SSD at 1e-3 (also
+against the sequential ``ssd_ref``, with ragged S and state chaining).
+Also: the registry's mode rules, the CUDA wrappers' fake and vmap rules
+(on meta tensors) and input checks. The CUDA kernels themselves are held
 against their plain versions on the card, in ``test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
@@ -22,10 +24,16 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import flash_attention as jax_flash_attention  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.kernels.moe_gmm import grouped_matmul as jax_grouped_matmul  # noqa: E402
+from repro.kernels.ssd_scan import ssd as jax_ssd  # noqa: E402
+from repro.kernels.ssd_scan import ssd_intra_chunk as jax_ssd_intra_chunk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ops, ref, registry  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -101,6 +109,111 @@ class TestRMSNormParity:
         _close(rms.rmsnorm(xt, wt, residual=rt), want, dtype)
 
 
+class TestGroupedMatmulParity:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("E,C,d,f", [
+        (4, 64, 128, 128), (2, 100, 256, 128), (8, 32, 128, 256),   # the reference's
+        (3, 13, 99, 45),                                            # ragged C, d, f
+    ])
+    def test_matches_reference_kernel(self, E, C, d, f, dtype):
+        rng = np.random.default_rng(11)
+        xj, xt = _both(rng.standard_normal((E, C, d)) * 0.3, dtype)
+        wj, wt = _both(rng.standard_normal((E, d, f)) * 0.3, dtype)
+        want = np.asarray(jax_grouped_matmul(xj, wj, interpret=True), np.float32)
+        for got in (ref.grouped_matmul_ref(xt, wt), ops.grouped_matmul(xt, wt),
+                    gmm.grouped_matmul(xt, wt)):
+            assert got.dtype == TORCH[dtype] and got.shape == (E, C, f)
+            np.testing.assert_allclose(got.float().numpy(), want,
+                                       atol=TOL[dtype] * d, rtol=TOL[dtype])
+
+
+def _ssd_inputs(seed, Bz, S, H, P, G, N):
+    """The reference test's distributions: dt > 0, A < 0, B and C at 0.5."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((Bz, S, H, P)),
+            np.abs(rng.standard_normal((Bz, S, H))) * 0.1 + 0.01,
+            -np.abs(rng.standard_normal(H)) - 0.1,
+            rng.standard_normal((Bz, S, G, N)) * 0.5,
+            rng.standard_normal((Bz, S, G, N)) * 0.5,
+            rng.standard_normal(H),
+            rng.standard_normal((Bz, H, P, N)) * 0.3)
+    return [_both(a, "float32") for a in arrs]
+
+
+def _ssd_close(got, want):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=1e-3, rtol=1e-3)
+
+
+class TestSSDParity:
+    @pytest.mark.parametrize("S,H,P,G,N,chunk", [
+        (128, 2, 32, 1, 16, 32),
+        (256, 4, 64, 2, 32, 64),
+        (64, 2, 16, 1, 64, 64),    # single chunk
+    ])
+    def test_matches_reference_kernel(self, S, H, P, G, N, chunk):
+        (xj, xt), (dtj, dtt), (Aj, At), (Bj, Bt), (Cj, Ct), (Dj, Dt), _ = \
+            _ssd_inputs(0, 2, S, H, P, G, N)
+        y_seq, h_seq = jax_ref.ssd_ref(xj, dtj, Aj, Bj, Cj, D=Dj)
+        y_pal, h_pal = jax_ssd(xj, dtj, Aj, Bj, Cj, D=Dj, chunk=chunk, interpret=True)
+        for fn in (ssd_scan.ssd, ops.ssd):
+            y, h = fn(xt, dtt, At, Bt, Ct, D=Dt, chunk=chunk)
+            for want_y, want_h in ((y_seq, h_seq), (y_pal, h_pal)):
+                _ssd_close(y, want_y)
+                _ssd_close(h, want_h)
+        y, h = ref.ssd_ref(xt, dtt, At, Bt, Ct, D=Dt)
+        _ssd_close(y, y_seq)
+        _ssd_close(h, h_seq)
+
+    @pytest.mark.parametrize("S,chunk", [(100, 32), (12, 16)])
+    def test_ragged_sequence_with_init_state(self, S, chunk):
+        """S padded with dt = 0 steps (the JAX kernel path asserts S % chunk
+        == 0; its ref path pads the same way)."""
+        (xj, xt), (dtj, dtt), (Aj, At), (Bj, Bt), (Cj, Ct), (Dj, Dt), (hj, ht) = \
+            _ssd_inputs(1, 2, S, 4, 16, 2, 8)
+        want_y, want_h = jax_ref.ssd_ref(xj, dtj, Aj, Bj, Cj, D=Dj, init_state=hj)
+        for fn in (ssd_scan.ssd, ops.ssd):
+            y, h = fn(xt, dtt, At, Bt, Ct, D=Dt, init_state=ht, chunk=chunk)
+            assert y.shape == xt.shape and h.shape == ht.shape
+            _ssd_close(y, want_y)
+            _ssd_close(h, want_h)
+
+    def test_state_chaining_matches_decode(self):
+        """Chunked prefill state -> sequential decode == one long pass."""
+        S, cut = 96, 64
+        (xj, xt), (dtj, dtt), (Aj, At), (Bj, Bt), (Cj, Ct), _, _ = \
+            _ssd_inputs(2, 1, S, 2, 16, 1, 8)
+        y_all, _ = jax_ref.ssd_ref(xj, dtj, Aj, Bj, Cj)
+        _, h = ssd_scan.ssd(xt[:, :cut], dtt[:, :cut], At, Bt[:, :cut], Ct[:, :cut],
+                            chunk=32)
+        ys = []
+        for t in range(cut, S):
+            y_t, h = ref.ssd_ref(xt[:, t:t + 1], dtt[:, t:t + 1], At, Bt[:, t:t + 1],
+                                 Ct[:, t:t + 1], init_state=h)
+            ys.append(y_t)
+        _ssd_close(torch.cat(ys, dim=1), y_all[:, cut:])
+
+    def test_intra_chunk_plain_version_matches_reference_kernel(self):
+        """The custom op's plain version, in its own layouts (group rows read
+        in place), against the Pallas intra-chunk kernel on repeated B, C."""
+        rng = np.random.default_rng(3)
+        BH, BG, S, P, N, chunk = 8, 2, 64, 16, 8, 32
+        xs = rng.standard_normal((BH, S, P)).astype(np.float32)
+        b = rng.standard_normal((BG, S, N)).astype(np.float32) * 0.5
+        c = rng.standard_normal((BG, S, N)).astype(np.float32) * 0.5
+        lda = -np.abs(rng.standard_normal((BH, S))).astype(np.float32) * 0.05
+        rep = BH // BG
+        want = jax_ssd_intra_chunk(jnp.asarray(xs), jnp.asarray(np.repeat(b, rep, 0)),
+                                   jnp.asarray(np.repeat(c, rep, 0)),
+                                   jnp.asarray(lda[..., None]), chunk=chunk,
+                                   interpret=True)
+        got = ssd_scan.ssd_intra_chunk(*(torch.from_numpy(a) for a in (xs, b, c, lda)),
+                                       chunk)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            _ssd_close(g, w)
+
+
 class TestRegistry:
     def test_auto_resolves_by_device(self):
         assert registry.resolved_mode("auto", torch.device("cpu")) == "ref"
@@ -121,8 +234,8 @@ class TestRegistry:
         with pytest.raises(ValueError, match="expected one of"):
             registry.set_kernel_mode("pallas")
         with pytest.raises(KeyError, match="registered ops"):
-            registry.dispatch("ssd", torch.ones(2))
-        assert registry.ops() == ["attention", "rmsnorm"]
+            registry.dispatch("conv", torch.ones(2))
+        assert registry.ops() == ["attention", "grouped_matmul", "rmsnorm", "ssd"]
 
     def test_scope_is_thread_local_and_restores(self):
         seen = {}
@@ -167,6 +280,30 @@ class TestCudaWrappers:
             lambda a: fa._flash_attention_cuda(a, k, k, True, -1, 0, 0.25, 0))(q)
         assert o.shape == (3, 2, 7, 4, 16)
 
+    def test_grouped_matmul_fake_and_vmap_rules(self):
+        x = torch.empty(3, 4, 8, 16, device="meta")
+        w = torch.empty(4, 16, 24, device="meta")
+        assert gmm._grouped_matmul_cuda(x[0], w).shape == (4, 8, 24)
+        y = torch.func.vmap(lambda a: gmm._grouped_matmul_cuda(a, w))(x)   # folds into C
+        assert y.shape == (3, 4, 8, 24)
+        y = torch.func.vmap(lambda a: gmm._grouped_matmul_cuda(a, w), in_dims=2)(x)
+        assert y.shape == (8, 3, 4, 24)
+        ws = torch.empty(3, 4, 16, 24, device="meta")
+        y = torch.func.vmap(gmm._grouped_matmul_cuda)(x, ws)              # per-member w
+        assert y.shape == (3, 4, 8, 24)
+
+    def test_ssd_intra_chunk_fake_and_vmap_rules(self):
+        xs = torch.empty(6, 64, 16, device="meta")
+        b = torch.empty(2, 64, 8, device="meta")
+        lda = torch.empty(6, 64, device="meta")
+        y, st, cd = ssd_scan._ssd_intra_chunk_cuda(xs, b, b, lda, 32)
+        assert (y.shape, st.shape, cd.shape) == ((6, 64, 16), (6, 2, 8, 16), (6, 2, 1, 1))
+        y, st, cd = torch.func.vmap(
+            lambda a, l_: ssd_scan._ssd_intra_chunk_cuda(a, b, b, l_, 32))(
+            xs.expand(3, *xs.shape), lda.expand(3, *lda.shape))
+        assert (y.shape, st.shape, cd.shape) == ((3, 6, 64, 16), (3, 6, 2, 8, 16),
+                                                 (3, 6, 2, 1, 1))
+
     def test_checks_reject_what_the_kernel_does_not_take(self):
         q = torch.ones(1, 4, 2, 48)
         with pytest.raises(ValueError, match="head_dim"):
@@ -183,3 +320,24 @@ class TestCudaWrappers:
             rms._check(torch.ones(2, 8), torch.ones(4), None)
         with pytest.raises(ValueError, match="CUDA device"):
             rms._check(torch.ones(2, 8), torch.ones(8), None)
+        x, w = torch.ones(2, 4, 8), torch.ones(2, 8, 3)
+        with pytest.raises(ValueError, match="want x"):
+            gmm._check(x, torch.ones(2, 7, 3))
+        with pytest.raises(TypeError, match="float32/bfloat16"):
+            gmm._check(x, w.bfloat16())
+        with pytest.raises(ValueError, match="CUDA device"):
+            gmm._check(x, w)
+        xs, b, lda = torch.ones(4, 64, 16), torch.ones(2, 64, 8), torch.ones(4, 64)
+        with pytest.raises(ValueError, match="chunk"):
+            ssd_scan._check(xs, b, b, lda, 48)
+        with pytest.raises(ValueError, match="head dim"):
+            ssd_scan._check(torch.ones(4, 64, 160), b, b, lda, 32)
+        with pytest.raises(ValueError, match="shared memory"):
+            wide = torch.ones(2, 128, 256)
+            ssd_scan._check(torch.ones(4, 128, 128), wide, wide, torch.ones(4, 128), 128)
+        with pytest.raises(ValueError, match="BH % BG"):
+            ssd_scan._check(xs, torch.ones(3, 64, 8), torch.ones(3, 64, 8), lda, 32)
+        with pytest.raises(TypeError, match="float32"):
+            ssd_scan._check(xs.bfloat16(), b, b, lda, 32)
+        with pytest.raises(ValueError, match="CUDA device"):
+            ssd_scan._check(xs, b, b, lda, 32)

@@ -183,7 +183,11 @@ def test_params_from_jax_rejects_mismatched_shapes(pair):
         M.params_from_jax(tree, cfg)
 
 
-def test_non_dense_family_is_not_ported():
-    cfg = reduced(get_config("qwen2.5-3b"), family="moe")
+@pytest.mark.parametrize("family,hybrid_ssm", [("hybrid", True), ("encdec", False),
+                                               ("vlm", False), ("dense", True)])
+def test_unported_family_is_not_ported(family, hybrid_ssm):
+    """dense, moe and ssm are ported; hybrid (attention ∥ SSM), encdec and
+    vlm raise, naming ROADMAP."""
+    cfg = reduced(get_config("qwen2.5-3b"), family=family, hybrid_ssm=hybrid_ssm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.Model(cfg)

@@ -217,6 +217,14 @@ def test_serve_cli_smoke_on_cpu(mode, capsys):
         assert "0 fallbacks" in out
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-370m"])
+def test_serve_cli_runs_the_new_families_on_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--smoke", "--server", "--device", "cpu", "--gen", "3",
+                       "--prompt-len", "8", "--batch", "2", "--tenants", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "0 fallbacks" in out and "grouped_matmul 0, ssd_intra_chunk 0" in out
+
+
 def test_serve_cli_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")

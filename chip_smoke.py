@@ -6,23 +6,31 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. Device and build: print the card's name and power limit
-   (``nvidia-smi``), build the four CUDA kernels from
+   (``nvidia-smi``), build the six CUDA kernels from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel) and print the
    build time and the compiler's register / shared memory report.
 2. Kernels: hold each kernel against its plain PyTorch version on the
-   card, at the paths' shapes and at small cases:
+   card, at the paths' shapes and at small cases, each case through the
+   public wrapper with one counted launch of the kernel that
+   ``kernel_for`` picks by dtype and shape:
    RMSNorm (residual, (B, S, H, hd) input, ragged and wide d) and flash
    attention (GQA, MQA, MHA, ragged S, window, chunk, decode offset, cross
-   attention, head dims 16-128) at atol = rtol = 2e-5 in f32 and 2e-2 in
-   bf16; grouped matmul (the reference's cases in f32 and bf16, ragged C,
-   d and f, the MoE prefill and decode shapes) at atol = TOL·d, rtol = TOL
-   as the reference's test, plus relative L2 <= 1e-5 (f32) / 5e-3 (bf16);
-   SSD (the reference's cases, the mamba2 shape, ragged S, an init_state
-   chained into the sequential decode recurrence) at 1e-3 against
-   ``ssd_ref`` and ``ssd_chunked_ref``. Time each kernel, its plain version
-   and one PyTorch library call where one computes the same function
-   (``F.rms_norm``, ``F.scaled_dot_product_attention``, ``torch.bmm``; the
-   port never calls them) with CUDA events at the paths' shapes.
+   attention, head dims 16-128; bf16 at head dim 64 / 128 takes the TMA +
+   wgmma kernel, with its edges: decode-shaped, a window, Sk off its
+   128-key tile) at atol = rtol = 2e-5 in f32 and 2e-2 in bf16; grouped
+   matmul (the reference's cases in f32 and bf16, ragged C, d and f, the
+   MoE prefill and decode shapes; bf16 with d, f multiples of 8 takes the
+   TMA + wgmma kernel, with C of 1, 65, 200 and 300 and d, f off its tiles)
+   at atol = TOL·d, rtol = TOL as the reference's test, plus relative L2
+   <= 1e-5 (f32) / 5e-3 (bf16); SSD (the reference's cases, the mamba2
+   shape, ragged S, an init_state chained into the sequential decode
+   recurrence) at 1e-3 against ``ssd_ref`` and ``ssd_chunked_ref``. Time
+   each kernel, its plain version and one PyTorch library call where one
+   computes the same function (``F.rms_norm``,
+   ``F.scaled_dot_product_attention``, ``torch.bmm``; the port never calls
+   them) with CUDA events at the paths' shapes; for flash attention (dense
+   and MoE prefill) and grouped matmul (prefill and decode) also the first
+   design, through its raw launcher.
 3. Paths, one model at a time (the previous one freed first), each driven
    the same way: 4 tenants each prefill batch 4 x 512 tokens, then 8
    greedy decode steps each from 4 threads through the port's
@@ -30,13 +38,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    counts are set to 0 just before each path and read just after. Every
    path checks: no batch fell back to serial replay, some batch held more
    than one tenant, the structural intern cache was hit by tenants 2..4.
-   a. qwen2.5-3b, full width and depth: flash attention launched in
-      prefill, RMSNorm in prefill and decode; tenant 0's logits (prefill
-      and one decode step) with the kernels against the plain versions
-      within relative L2 2e-2.
+   The first designs of flash attention and grouped matmul launch 0
+   times on every path.
+   a. qwen2.5-3b, full width and depth: the TMA + wgmma flash attention
+      launched 36 times a tenant in prefill, RMSNorm in prefill and
+      decode; tenant 0's logits (prefill and one decode step) with the
+      kernels against the plain versions within relative L2 2e-2.
    b. qwen3-moe-30b-a3b, full width, 16 of 48 layers (f32 params do not
-      fit one card): grouped matmul launched 48 times a tenant in prefill
-      and in decode, flash attention and RMSNorm in prefill; in f32 (same
+      fit one card): the TMA + wgmma grouped matmul launched 48 times a
+      tenant in prefill and in decode, the TMA + wgmma flash attention 16
+      times a tenant and RMSNorm in prefill; in f32 (same
       weights) tenant 0's prefill logits and one decode step within
       relative L2 1e-3, the plain run taking the kernel run's top-k expert
       choices (printed: how many its own router would change); in bf16
@@ -82,6 +93,7 @@ GMM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 SSD_TOL = 1e-3
 
 TENANTS, BATCH, PROMPT, DECODE_STEPS = 4, 4, 512, 8
+FIRST_DESIGNS = ("flash_attention", "grouped_matmul")   # kept for f32 and shapes TMA cannot take
 MOE_LAYERS = 16                     # of 48: f32 params of all 48 take 122 GB
 
 
@@ -164,6 +176,28 @@ def entry(name, source, replaces, err, tol, kernel_ms, plain_ms, lib_ms, bound_m
             "bound_by": bound_by, "shape": shape, "dtype": dtype}
 
 
+def check_case(name: str, mod, kernel: str, run, want: torch.Tensor, atol: float,
+               rtol: float | None = None) -> tuple[torch.Tensor, float]:
+    """Run one case through the public wrapper, require that exactly one
+    launch of ``kernel`` (the one ``mod.kernel_for`` picks) was counted, and
+    compare with the plain version."""
+    before = dict(mod.launches_by_kernel)
+    got = run()
+    rose = {k: n - before[k] for k, n in mod.launches_by_kernel.items() if n != before[k]}
+    if rose != {kernel: 1}:
+        raise AssertionError(f"{name}: want one launch of {kernel}, counted {rose}")
+    return got, compare(f"{name} [{kernel}]", got, want, atol, rtol)
+
+
+def design_line(label: str, kernel_ms: float, first_ms: float, lib_name: str,
+                lib_ms: float | None, flops: float, b_ms: float, b_by: str) -> None:
+    """One shape's timing of both designs beside the bound and the yardstick."""
+    log(f"  {label}: kernel {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / kernel_ms:.1%} of the {b_by} bound {b_ms:.4f} ms); first design "
+        f"{first_ms:.4f} ms ({flops / first_ms / 1e9:.1f} TFLOP/s, {b_ms / first_ms:.1%}); "
+        f"{lib_name} {lib_ms} ms; new / first {kernel_ms / first_ms:.3f}")
+
+
 # ---------------------------------------------------------------- kernels
 
 def check_rmsnorm(rms, ref, gen) -> dict:
@@ -226,40 +260,62 @@ def check_attention(fa, ref, gen) -> dict:
         (2, 64, 200, 4, 2, 64, torch.float32, {"causal": False}),       # cross
         (2, 64, 200, 4, 2, 128, torch.bfloat16, {"causal": False}),
         (2, 24, 24, 4, 2, 16, torch.float32, {}),                       # reduced configs
+        # the TMA + wgmma kernel's edges: decode-shaped, window, Sk off its 128-key tile
+        (2, 1, 128, 4, 2, 128, torch.bfloat16, {"q_offset": 127}),
+        (1, 256, 256, 4, 2, 128, torch.bfloat16, {"window": 100}),
+        (2, 200, 200, 4, 2, 64, torch.bfloat16, {}),
+        (2, 200, 200, 4, 2, 128, torch.bfloat16, {}),
+        (2, 100, 150, 8, 2, 64, torch.bfloat16, {"q_offset": 37}),
+        (1, 256, 256, 4, 2, 128, torch.bfloat16, {"chunk": 64}),
     ]
-    worst = 0.0
+    worst, by_kernel = 0.0, {}
     for B, Sq, Sk, Hq, Hkv, D, dt, kw in cases:
         q = randn(B, Sq, Hq, D, dtype=dt, gen=gen)
         k = randn(B, Sk, Hkv, D, dtype=dt, gen=gen)
         v = randn(B, Sk, Hkv, D, dtype=dt, gen=gen)
-        err = compare(f"attention B{B} Sq{Sq} Sk{Sk} Hq{Hq} Hkv{Hkv} D{D} {dt} {kw}",
-                      fa.flash_attention(q, k, v, **kw), ref.attention_ref(q, k, v, **kw),
-                      TOL[dt])
+        kernel = fa.kernel_for(dt, D)
+        _, err = check_case(f"attention B{B} Sq{Sq} Sk{Sk} Hq{Hq} Hkv{Hkv} D{D} {dt} {kw}",
+                            fa, kernel, lambda: fa.flash_attention(q, k, v, **kw),
+                            ref.attention_ref(q, k, v, **kw), TOL[dt])
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
         if Sq == PROMPT:
             worst = max(worst, err)
-    log(f"flash_attention: {len(cases)} cases agree (main-path max abs err {worst:.3g})")
+    log(f"flash_attention: {len(cases)} cases agree ({by_kernel}; main-path max abs err "
+        f"{worst:.3g})")
 
-    B, S, Hq, Hkv, D = TENANTS, PROMPT, 16, 2, 128
-    q = randn(B, S, Hq, D, dtype=torch.bfloat16, gen=gen)
-    k = randn(B, S, Hkv, D, dtype=torch.bfloat16, gen=gen)
-    v = randn(B, S, Hkv, D, dtype=torch.bfloat16, gen=gen)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush=flush)
-    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), flush=flush)
-    lib_ms = library_ms("F.scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
-    pairs = B * Hq * S * (S + 1) // 2          # causal (q, k) pairs this run needs
-    flops = 4 * D * pairs                       # QK^T and PV, 2 flops a MAC each
-    b_ms, b_by = bound(sum(t.numel() * t.element_size() for t in (q, k, v, q)), flops,
-                       torch.bfloat16)
-    log(f"flash_attention timing ({B}x{S}, {Hq}/{Hkv} heads, D{D} bf16 causal): kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms} ms, bound "
-        f"{b_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s achieved)")
-    return entry("flash_attention", "flash_attention.cu",
-                 "src/repro/kernels/flash_attention.py:102", worst,
-                 TOL[torch.bfloat16], kernel_ms, plain_ms, lib_ms, b_ms, b_by,
-                 [B, S, Hq, Hkv, D], "bfloat16")
+    shapes = {}
+    log("flash_attention timing (bf16 causal, D 128; first design through its raw launcher):")
+    for label, (B, S, Hq, Hkv, D) in (("dense prefill", (TENANTS, PROMPT, 16, 2, 128)),
+                                      ("moe prefill", (TENANTS, PROMPT, 32, 4, 128))):
+        q = randn(B, S, Hq, D, dtype=torch.bfloat16, gen=gen)
+        k = randn(B, S, Hkv, D, dtype=torch.bfloat16, gen=gen)
+        v = randn(B, S, Hkv, D, dtype=torch.bfloat16, gen=gen)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush=flush)
+        first_ms = time_ms(lambda: fa.launch_kernel("flash_attention", q, k, v, True, -1, 0,
+                                                    D ** -0.5, 0), flush=flush)
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), flush=flush)
+        lib_ms = library_ms("F.scaled_dot_product_attention",
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        pairs = B * Hq * S * (S + 1) // 2          # causal (q, k) pairs this run needs
+        flops = 4 * D * pairs                       # QK^T and PV, 2 flops a MAC each
+        b_ms, b_by = bound(sum(t.numel() * t.element_size() for t in (q, k, v, q)), flops,
+                           torch.bfloat16)
+        design_line(f"{label} {B}x{S}, {Hq}/{Hkv} heads", kernel_ms, first_ms, "SDPA",
+                    lib_ms, flops, b_ms, b_by)
+        log(f"    plain {plain_ms:.4f} ms")
+        shapes[label] = {"shape": [B, S, Hq, Hkv, D], "ms": kernel_ms, "first_design_ms": first_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+    dense = shapes["dense prefill"]
+    e = entry("flash_attention", "flash_attention_sm90.cu",
+              "src/repro/kernels/flash_attention.py:102", worst, TOL[torch.bfloat16],
+              dense["ms"], dense["plain_ms"], dense["library_ms"], dense["bound_ms"],
+              dense["bound_by"], dense["shape"], "bfloat16")
+    e["first_design_ms"], e["by_shape"] = dense["first_design_ms"], shapes
+    return e
 
 
 def check_grouped_matmul(gmm, ref, gen) -> dict:
@@ -270,40 +326,55 @@ def check_grouped_matmul(gmm, ref, gen) -> dict:
              (2, 64, 100, 64),                  # ragged d
              (2, 40, 128, 60),                  # ragged f
              (3, 13, 99, 45),                   # all ragged
-             (E, c_pre, d, f), (E, c_pre, f, d), (E, c_dec, d, f)]   # MoE prefill, decode
-    worst = 0.0
+             (E, c_pre, d, f), (E, c_pre, f, d), (E, c_dec, d, f),   # MoE prefill, decode
+             # the TMA + wgmma kernel's edges: C of 1, 65 and 200 rows, d and f
+             # multiples of 8 off its 64 x 128 tiles
+             (2, 1, 256, 128), (2, 65, 256, 128), (2, 200, 256, 128), (3, 40, 136, 200),
+             (2, 300, 128, 256)]
+    worst, by_kernel = 0.0, {}
     for case in cases:
         for dt in (torch.float32, torch.bfloat16):
             e, c, dd, ff = case
             x = randn(e, c, dd, dtype=dt, gen=gen, scale=0.3)
             w = randn(e, dd, ff, dtype=dt, gen=gen, scale=0.3)
-            got, want = gmm.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w)
-            err = compare(f"grouped_matmul {case} {dt}", got, want, TOL[dt] * dd, TOL[dt])
-            rl2 = rel_l2(got, want)
+            kernel = gmm.kernel_for(dt, dd, ff)
+            got, err = check_case(f"grouped_matmul {case} {dt}", gmm, kernel,
+                                  lambda: gmm.grouped_matmul(x, w),
+                                  ref.grouped_matmul_ref(x, w), TOL[dt] * dd, TOL[dt])
+            rl2 = rel_l2(got, ref.grouped_matmul_ref(x, w))
             if rl2 > GMM_REL[dt]:
                 raise AssertionError(f"grouped_matmul {case} {dt}: rel L2 {rl2:.3g} > "
                                      f"{GMM_REL[dt]}")
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
             if case == (E, c_pre, d, f) and dt == torch.bfloat16:
                 worst = err
-    log(f"grouped_matmul: {2 * len(cases)} cases agree (prefill bf16 max abs err {worst:.3g})")
+    log(f"grouped_matmul: {2 * len(cases)} cases agree ({by_kernel}; prefill bf16 max abs "
+        f"err {worst:.3g})")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    out = {}
+    shapes = {}
+    log("grouped_matmul timing (bf16; first design through its raw launcher):")
     for label, c in (("prefill", c_pre), ("decode", c_dec)):
         x = randn(E, c, d, dtype=torch.bfloat16, gen=gen, scale=0.3)
         w = randn(E, d, f, dtype=torch.bfloat16, gen=gen, scale=0.3)
         kernel_ms = time_ms(lambda: gmm.grouped_matmul(x, w), flush=flush)
+        first_ms = time_ms(lambda: gmm.launch_kernel("grouped_matmul", x, w), flush=flush)
         plain_ms = time_ms(lambda: ref.grouped_matmul_ref(x, w), flush=flush)
         lib_ms = library_ms("torch.bmm", lambda: torch.bmm(x, w), flush)
         flops = 2 * E * c * d * f
         b_ms, b_by = bound(2 * (x.numel() + w.numel() + E * c * f), flops, torch.bfloat16)
-        log(f"grouped_matmul timing {label} ({E}x{c}x{d} @ {E}x{d}x{f} bf16): kernel "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {flops / kernel_ms / 1e9:.1f} TFLOP/s achieved)")
-        out[label] = (kernel_ms, plain_ms, lib_ms, b_ms, b_by)
-    e = entry("grouped_matmul", "grouped_matmul.cu", "src/repro/kernels/moe_gmm.py:41",
-              worst, TOL[torch.bfloat16] * d, *out["prefill"], [E, c_pre, d, f], "bfloat16")
-    e["decode_ms"], e["decode_bound_ms"] = out["decode"][0], out["decode"][3]
+        design_line(f"{label} {E}x{c}x{d} @ {E}x{d}x{f}", kernel_ms, first_ms, "torch.bmm",
+                    lib_ms, flops, b_ms, b_by)
+        log(f"    plain {plain_ms:.4f} ms")
+        shapes[label] = {"shape": [E, c, d, f], "ms": kernel_ms, "first_design_ms": first_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+    pre = shapes["prefill"]
+    e = entry("grouped_matmul", "grouped_matmul_sm90.cu", "src/repro/kernels/moe_gmm.py:41",
+              worst, TOL[torch.bfloat16] * d, pre["ms"], pre["plain_ms"], pre["library_ms"],
+              pre["bound_ms"], pre["bound_by"], pre["shape"], "bfloat16")
+    e["first_design_ms"], e["by_shape"] = pre["first_design_ms"], shapes
+    e["decode_ms"], e["decode_bound_ms"] = shapes["decode"]["ms"], shapes["decode"]["bound_ms"]
     return e
 
 
@@ -395,10 +466,11 @@ def device_profile(label: str, fn) -> None:
         log(f"profile {label}: wall {wall_us / 1e3:.1f} ms; device time not measured "
             f"(the profiler recorded no CUDA activity)")
         return
-    groups = {"matmul (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass", "sm90"),
-              "flash_attention kernel": ("fa_fwd",), "rmsnorm kernel": ("rmsnorm_kernel",),
-              "grouped_matmul kernel": ("gmm_bf16", "gmm_f32"),
-              "ssd kernel": ("ssd_chunk",)}
+    groups = {"flash_attention kernel": ("fa_sm90", "fa_fwd"),   # before cuBLAS's "sm90"
+              "rmsnorm kernel": ("rmsnorm_kernel",),
+              "grouped_matmul kernel": ("gmm_sm90", "gmm_bf16", "gmm_f32"),
+              "ssd kernel": ("ssd_chunk",),
+              "matmul (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass", "sm90")}
     other = "other (casts, elementwise, softmax, copies)"
     shares = {g: 0.0 for g in groups}
     shares[other] = 0.0
@@ -410,6 +482,15 @@ def device_profile(label: str, fn) -> None:
         + "; ".join(f"{g} {us / 1e3:.2f} ms" for g, us in shares.items() if us))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
         log(f"  {us / 1e3:8.2f} ms  {name[:100]}")
+
+
+def read_counts(kernels: dict) -> dict:
+    """Launch counts since the last reset, by kernel source
+    (``csrc/<name>.cu``): a wrapper with several kernels counts each."""
+    out = {}
+    for name, mod in kernels.items():
+        out.update(getattr(mod, "launches_by_kernel", {name: mod.launches}))
+    return out
 
 
 def serve_path(label: str, cfg, params, kernels: dict) -> dict:
@@ -442,7 +523,7 @@ def serve_path(label: str, cfg, params, kernels: dict) -> dict:
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         states.append({"tok": tok, "pos": pos, "caches": caches, "out": [tok],
                        "logits": logits})
-    in_prefill = {k: mod.launches for k, mod in kernels.items()}
+    in_prefill = read_counts(kernels)
 
     server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, name=f"chip-smoke-{label}")
     errors: list[BaseException] = []
@@ -474,7 +555,7 @@ def serve_path(label: str, cfg, params, kernels: dict) -> dict:
             t.join()
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
-        total = {k: mod.launches for k, mod in kernels.items()}
+        total = read_counts(kernels)
         # ---- end of the main path
         stats = server.stats()
         if errors:
@@ -497,7 +578,7 @@ def serve_path(label: str, cfg, params, kernels: dict) -> dict:
 
     m = stats["metrics"]
     toks = TENANTS * BATCH * DECODE_STEPS
-    in_decode = {k: total[k] - in_prefill[k] for k in kernels}
+    in_decode = {k: total[k] - in_prefill[k] for k in total}
     log(f"{label} prefill: {sum(prefill_ms):.1f} ms for {TENANTS} tenants x {BATCH}x{PROMPT} "
         f"(per tenant {', '.join(f'{x:.1f}' for x in prefill_ms)} ms)")
     log(f"{label} decode:  {t_decode * 1e3:.1f} ms for {DECODE_STEPS} steps x {TENANTS} "
@@ -509,7 +590,11 @@ def serve_path(label: str, cfg, params, kernels: dict) -> dict:
     log(f"{label} latency: p50 {m['latency']['p50_s'] * 1e3:.2f} ms  p99 "
         f"{m['latency']['p99_s'] * 1e3:.2f} ms")
     log(f"{label} launches: " + "; ".join(f"{k} {in_prefill[k]} in prefill + {in_decode[k]} "
-                                          f"in decode" for k in kernels))
+                                          f"in decode" for k in total))
+    for first in FIRST_DESIGNS:
+        if total[first]:
+            raise AssertionError(f"{label}: the first design {first} launched {total[first]} "
+                                 f"times on the main path")
 
     if m["batch_fallbacks"] != 0:
         raise AssertionError(f"{label}: {m['batch_fallbacks']} batches fell back to serial replay")
@@ -565,7 +650,7 @@ def init_model(cfg):
     from repro_torch.models import model as M
 
     t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     nparams = sum(p.numel() for p in params.parameters())
     log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {nparams / 1e9:.3f}B "
@@ -579,8 +664,10 @@ def run_dense(kernels, registry) -> dict:
     cfg = get_config("qwen2.5-3b")
     params = init_model(cfg)
     run = serve_path("dense", cfg, params, kernels)
-    if not run["prefill"]["flash_attention"] > 0:
-        raise AssertionError("flash attention kernel never launched in prefill")
+    if run["prefill"]["flash_attention_sm90"] != TENANTS * cfg.num_layers:
+        raise AssertionError(f"flash attention (TMA + wgmma) launched "
+                             f"{run['prefill']['flash_attention_sm90']} times in prefill, not "
+                             f"{cfg.num_layers} a tenant")
     if not (run["prefill"]["rmsnorm"] > 0 and run["decode"]["rmsnorm"] > 0):
         raise AssertionError("rmsnorm kernel did not launch in both prefill and decode")
     gap = logits_gap(params, cfg, run["prompts"][0], run["max_len"], registry,
@@ -650,13 +737,18 @@ def run_moe(kernels, registry) -> dict:
     params = init_model(cfg)
     run = serve_path("moe", cfg, params, kernels)
     per_tenant = 3 * cfg.num_layers
-    if run["prefill"]["grouped_matmul"] != TENANTS * per_tenant:
-        raise AssertionError(f"grouped matmul launched {run['prefill']['grouped_matmul']} "
-                             f"times in prefill, not {per_tenant} a tenant")
-    if not run["decode"]["grouped_matmul"] > 0:
+    if run["prefill"]["grouped_matmul_sm90"] != TENANTS * per_tenant:
+        raise AssertionError(f"grouped matmul (TMA + wgmma) launched "
+                             f"{run['prefill']['grouped_matmul_sm90']} times in prefill, not "
+                             f"{per_tenant} a tenant")
+    if not run["decode"]["grouped_matmul_sm90"] > 0:
         raise AssertionError("grouped matmul kernel never launched in decode")
-    if not (run["prefill"]["flash_attention"] > 0 and run["prefill"]["rmsnorm"] > 0):
-        raise AssertionError("flash attention or rmsnorm never launched in MoE prefill")
+    if run["prefill"]["flash_attention_sm90"] != TENANTS * cfg.num_layers:
+        raise AssertionError(f"flash attention (TMA + wgmma) launched "
+                             f"{run['prefill']['flash_attention_sm90']} times in MoE prefill, "
+                             f"not {cfg.num_layers} a tenant")
+    if not run["prefill"]["rmsnorm"] > 0:
+        raise AssertionError("rmsnorm never launched in MoE prefill")
 
     prompt, first = run["prompts"][0], run["states"][0]["out"][0]
     n = cfg.num_layers
@@ -707,10 +799,10 @@ def run_mamba(kernels, registry) -> dict:
     cfg = get_config("mamba2-370m")
     params = init_model(cfg)
     run = serve_path("mamba2", cfg, params, kernels)
-    if run["prefill"]["ssd_intra_chunk"] != TENANTS * cfg.num_layers:
-        raise AssertionError(f"SSD launched {run['prefill']['ssd_intra_chunk']} times in "
+    if run["prefill"]["ssd_chunk"] != TENANTS * cfg.num_layers:
+        raise AssertionError(f"SSD launched {run['prefill']['ssd_chunk']} times in "
                              f"prefill, not {cfg.num_layers} a tenant")
-    if run["decode"]["ssd_intra_chunk"] != 0:
+    if run["decode"]["ssd_chunk"] != 0:
         raise AssertionError("SSD kernel launched in decode (the recurrence runs there)")
     if not (run["prefill"]["rmsnorm"] > 0 and run["decode"]["rmsnorm"] > 0):
         raise AssertionError("rmsnorm kernel did not launch in both prefill and decode")
@@ -777,9 +869,11 @@ def main() -> int:
         text = _build.log_path(name).read_text() if _build.log_path(name).exists() else ""
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)]
+        smem = [int(s) for s in re.findall(r"(\d+) bytes smem", text)]
         if regs:
             log(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-                f"spill stores up to {max(spills, default=0)} bytes")
+                f"spill stores up to {max(spills, default=0)} bytes, static shared memory "
+                f"up to {max(smem, default=0)} bytes")
 
     gen = torch.Generator("cuda").manual_seed(1234)
     t0 = time.perf_counter()
@@ -788,20 +882,21 @@ def main() -> int:
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
 
     kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm,
-               "ssd_intra_chunk": ssd}
+               "ssd_chunk": ssd}
     runs = {}
     for label, run_fn in (("dense", run_dense), ("moe", run_moe), ("mamba2", run_mamba)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run = run_fn(kernels, registry)
-        runs[label] = {k: run["prefill"][k] + run["decode"][k] for k in kernels}
+        runs[label] = {k: run["prefill"][k] + run["decode"][k] for k in run["prefill"]}
         del run
         log(f"path {label}: {time.perf_counter() - t0:.1f} s, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     for e in entries:
-        e["launches_by_path"] = {label: counts[e["name"]] for label, counts in runs.items()}
+        src = Path(e["source"]).stem
+        e["launches_by_path"] = {label: counts[src] for label, counts in runs.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         if not e["launches"] > 0:
             raise AssertionError(f"{e['name']} never launched on the main path")

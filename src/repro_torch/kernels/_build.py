@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles into one shared library with a plain C
 interface (``-gencode arch=compute_90a,code=sm_90a``): no PyTorch headers,
-so a build takes seconds. Libraries are named by a hash of their source and
-flags, written under ``_build/`` beside the package (gitignored), and
-renamed into place only when complete. A process-wide lock
-makes the first use from two threads build once; :func:`build` starts one
-``nvcc`` per source, all at once, and waits for every one of them.
+so a build takes seconds. Libraries are named by a hash of their source, the
+shared headers (``csrc/*.cuh``) and the flags, written under ``_build/``
+beside the package (gitignored), and renamed into place only when complete.
+A process-wide lock makes the first use from two threads build once;
+:func:`build` starts one ``nvcc`` per source, all at once, and waits for
+every one of them.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rmsnorm", "flash_attention", "grouped_matmul", "ssd_chunk")
+SOURCES = ("rmsnorm", "flash_attention", "flash_attention_sm90", "grouped_matmul",
+           "grouped_matmul_sm90", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +48,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,10 +1,12 @@
-"""Flash attention forward: wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention forward: wrapper of ``csrc/flash_attention_sm90.cu`` and
+``csrc/flash_attention.cu``.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (see the source
-note in the ``.cu`` file for the bound and the design). CUDA tensors launch
-the kernel through the ``repro_torch::flash_attention`` custom op, whose
-vmap rule folds the vmapped dim into the batch; CPU tensors take
-:func:`ref.attention_ref`.
+notes in the ``.cu`` files for the bounds and the designs). CUDA tensors
+launch a kernel through the ``repro_torch::flash_attention`` custom op,
+whose vmap rule folds the vmapped dim into the batch; CPU tensors take
+:func:`ref.attention_ref`. Which kernel a CUDA call launches depends on its
+dtype and head dim alone (:func:`kernel_for`).
 """
 from __future__ import annotations
 
@@ -18,10 +20,15 @@ from . import _build
 from .ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
+SM90_HEAD_DIMS = (64, 128)
+#: The kernels, by source: TMA + wgmma (bf16, head dim 64 / 128) and SIMT.
+KERNELS = ("flash_attention_sm90", "flash_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches since the last reset (one per launch, nowhere else).
+#: Kernel launches since the last reset (one per launch, nowhere else):
+#: the total, and by kernel.
 launches = 0
+launches_by_kernel = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
 
@@ -29,11 +36,25 @@ def reset_launches() -> None:
     global launches
     with _count_lock:
         launches = 0
+        for name in KERNELS:
+            launches_by_kernel[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim launches.
+
+    bf16 at head dim 64 or 128 takes the TMA + wgmma kernel. f32 stays on
+    the SIMT kernel, since its parity checks need 2e-5, which TF32 products
+    cannot give, and so do head dims 16 and 32.
+    """
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return KERNELS[0]
+    return KERNELS[1]
 
 
 @functools.cache
-def _launcher():
-    fn = _build.library("flash_attention").flash_attention_launch
+def _launcher(name: str):
+    fn = getattr(_build.library(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -61,6 +82,25 @@ def _check(q, k, v, window: int, chunk: int, q_offset: int) -> None:
         raise ValueError(f"bad q_offset {q_offset}, chunk {chunk} or window {window}")
 
 
+def launch_kernel(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int, chunk: int, scale: float,
+                  q_offset: int) -> torch.Tensor:
+    """Launch kernel ``name`` (one of :data:`KERNELS`) once on checked,
+    non-empty inputs and return its output. Counts nothing: the custom op
+    counts its own launches, and a caller that times or compares a kernel
+    through this function stays out of the counts."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = _launcher(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          B, Sq, Sk, Hq, Hkv, D, scale, int(causal), window, chunk,
+                          q_offset, _DTYPES[q.dtype],
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: error {err}")
+    return out
+
+
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cuda")
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,21 +109,15 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """window -1 and chunk 0 switch those masks off."""
     global launches
     _check(q, k, v, window, chunk, q_offset)
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if Sk == 0:       # no key at all: every row sums to 0 and outputs 0
-        return out.zero_()
-    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      B, Sq, Sk, Hq, Hkv, D, scale, int(causal), window, chunk,
-                      q_offset, _DTYPES[q.dtype],
-                      torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    if k.shape[1] == 0:   # no key at all: every row sums to 0 and outputs 0
+        return torch.zeros_like(q)
+    name = kernel_for(q.dtype, q.shape[3])
+    out = launch_kernel(name, q, k, v, causal, window, chunk, scale, q_offset)
     with _count_lock:
         launches += 1
+        launches_by_kernel[name] += 1
     return out
 
 
@@ -110,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     chunk: int | None = None, scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """CUDA tensors launch the kernel (or raise); CPU tensors take the plain version."""
+    """CUDA tensors launch a kernel (or raise); CPU tensors take the plain version."""
     if q.device.type != "cuda":
         return attention_ref(q, k, v, causal=causal, window=window, chunk=chunk,
                              scale=scale, q_offset=q_offset)

@@ -1,11 +1,13 @@
-"""Grouped (per-expert) matmul: wrapper of ``csrc/grouped_matmul.cu``.
+"""Grouped (per-expert) matmul: wrapper of ``csrc/grouped_matmul_sm90.cu``
+and ``csrc/grouped_matmul.cu``.
 
-Replaces ``repro.kernels.moe_gmm.grouped_matmul`` (see the source note in
-the ``.cu`` file for the bound and the design). CUDA tensors launch the
+Replaces ``repro.kernels.moe_gmm.grouped_matmul`` (see the source notes in
+the ``.cu`` files for the bounds and the designs). CUDA tensors launch a
 kernel through the ``repro_torch::grouped_matmul`` custom op; CPU tensors
-take :func:`ref.grouped_matmul_ref`. Under ``torch.func.vmap`` with shared
-weights (the server's coalesced decode) the vmapped dim folds into C, so
-one launch serves the whole batch.
+take :func:`ref.grouped_matmul_ref`. Which kernel a CUDA call launches
+depends on its dtype and shape alone (:func:`kernel_for`). Under
+``torch.func.vmap`` with shared weights (the server's coalesced decode) the
+vmapped dim folds into C, so one launch serves the whole batch.
 """
 from __future__ import annotations
 
@@ -18,10 +20,15 @@ import torch
 from . import _build
 from .ref import grouped_matmul_ref
 
+#: The kernels, by source: TMA + wgmma (bf16, d and f multiples of 8) and
+#: the first design (mma.sync for bf16, SIMT for f32).
+KERNELS = ("grouped_matmul_sm90", "grouped_matmul")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches since the last reset (one per launch, nowhere else).
+#: Kernel launches since the last reset (one per launch, nowhere else):
+#: the total, and by kernel.
 launches = 0
+launches_by_kernel = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
 
@@ -29,12 +36,25 @@ def reset_launches() -> None:
     global launches
     with _count_lock:
         launches = 0
+        for name in KERNELS:
+            launches_by_kernel[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, d: int, f: int) -> str:
+    """The kernel a CUDA call with this dtype and x (E, C, d), w (E, d, f)
+    launches: bf16 with d and f positive multiples of 8 (TMA needs 16-byte
+    row strides and a non-empty tensor) takes the TMA + wgmma kernel; f32
+    and the other shapes the first design."""
+    if dtype == torch.bfloat16 and d > 0 and d % 8 == 0 and f % 8 == 0:
+        return KERNELS[0]
+    return KERNELS[1]
 
 
 @functools.cache
-def _launcher():
-    fn = _build.library("grouped_matmul").grouped_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _launcher(name: str):
+    fn = getattr(_build.library(name), f"{name}_launch")
+    ints = 4 if name == KERNELS[0] else 7    # E, C, d, f [, dtype, vec_a, vec_b]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,6 +77,27 @@ def _vec(t: torch.Tensor, row: int) -> int:
     return int(row % 8 == 0 and t.data_ptr() % 16 == 0)
 
 
+def launch_kernel(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch kernel ``name`` (one of :data:`KERNELS`) once on checked,
+    non-empty inputs and return its output. Counts nothing: the custom op
+    counts its own launches, and a caller that times or compares a kernel
+    through this function stays out of the counts."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == KERNELS[0]:
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned x and w (TMA)")
+        err = _launcher(name)(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f, stream)
+    else:
+        err = _launcher(name)(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
+                              _DTYPES[x.dtype], _vec(x, d), _vec(w, f), stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: error {err}")
+    return out
+
+
 @torch.library.custom_op("repro_torch::grouped_matmul", mutates_args=(),
                          device_types="cuda")
 def _grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -64,16 +105,13 @@ def _grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     E, C, d = x.shape
     f = w.shape[2]
-    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    err = _launcher()(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
-                      _DTYPES[x.dtype], _vec(x, d), _vec(w, f),
-                      torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"grouped matmul kernel launch failed: CUDA error {err}")
+    if E * C * f == 0:
+        return x.new_empty((E, C, f))
+    name = kernel_for(x.dtype, d, f)
+    out = launch_kernel(name, x, w)
     with _count_lock:
         launches += 1
+        launches_by_kernel[name] += 1
     return out
 
 
@@ -97,7 +135,7 @@ def _(info, in_dims, x, w):
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """CUDA tensors launch the kernel (or raise); CPU tensors take the plain version."""
+    """CUDA tensors launch a kernel (or raise); CPU tensors take the plain version."""
     if x.device.type == "cuda":
         return _grouped_matmul_cuda(x, w)
     return grouped_matmul_ref(x, w)

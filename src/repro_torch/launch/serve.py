@@ -210,8 +210,7 @@ def main(argv=None) -> int:
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     with torch.no_grad():
-        params = init_params(cfg, torch.Generator(device).manual_seed(args.seed),
-                             device)
+        params = init_params(cfg, torch.Generator(device).manual_seed(args.seed))
         if args.server:
             return _run_server(args, cfg, params, device)
         return _run_single_stream(args, cfg, params, device)

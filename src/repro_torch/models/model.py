@@ -24,9 +24,11 @@ class Model(nn.Module):
     """Parameter tree of the reference (``embed``, ``layers``, ``final_norm``,
     ``head`` when untied); the layer index is the ModuleList index where the
     reference stacks a leading ``L`` axis. Entries are uninitialized until
-    :func:`init_params` or :func:`params_from_jax` fills them."""
+    :func:`init_params` or :func:`params_from_jax` fills them. ``device``
+    is required: the model is built where the caller says, never on a
+    default device."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device: torch.device | str):
         super().__init__()
         dt = cfg.param_torch_dtype
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, dt, device)
@@ -36,9 +38,8 @@ class Model(nn.Module):
                      else L.Embedding(cfg.padded_vocab, cfg.d_model, dt, device))
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device | str | None = None) -> Model:
-    """Random weights from ``generator`` (which must live on ``device``).
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> Model:
+    """Random weights from ``generator``, on the generator's device.
 
     Dense weights (linear, embedding, expert and conv weights: every module
     with an ``init_``) are truncated normals with std fan_in^-1/2; norms are
@@ -46,7 +47,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     the reference. The numbers differ from JAX's for the same seed, so
     parity tests carry weights over with :func:`params_from_jax`.
     """
-    model = Model(cfg, device)
+    model = Model(cfg, generator.device)
     for mod in model.modules():
         if hasattr(mod, "init_"):
             mod.init_(generator)
@@ -54,8 +55,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
-                    device: torch.device | str | None = None) -> Model:
-    """The port's model holding the reference's parameter pytree.
+                    device: torch.device | str) -> Model:
+    """The port's model holding the reference's parameter pytree, on ``device``.
 
     ``np_params`` is the JAX tree as numpy arrays, layers stacked on a
     leading ``L`` axis: ``model.layers.3.attn.wq.w`` takes
@@ -110,7 +111,8 @@ def _logits(params: Model, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tens
 # Serving: caches, prefill, decode
 # ---------------------------------------------------------------------------
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device: torch.device | str) -> list:
     """Per layer: ``{"ssm": {"conv", "ssd"}}`` (SSM family) or
     ``{"attn": {"k", "v", "pos"}}``."""
     if cfg.family == "ssm":

@@ -9,7 +9,10 @@ installed. On the card, from the repository root:
 Each kernel is held against its plain version (atol = rtol = 2e-5 in f32,
 2e-2 in bf16; grouped matmul at atol = TOL·d, rtol = TOL; SSD at 1e-3),
 under ``torch.func.vmap`` too, and the reduced models of the three ported
-families are run with the kernels and with the plain versions.
+families are run with the kernels and with the plain versions. Each
+attention and grouped-matmul case also checks that the kernel
+``kernel_for`` picks (TMA + wgmma for bf16 at the shapes TMA takes, the
+first design otherwise) is the one whose count rose.
 """
 import pytest
 
@@ -38,16 +41,29 @@ def _randn(g, *shape, dtype=torch.float32):
     return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
 
+def _one_launch_of(mod, kernel, run):
+    """Run ``run()``; exactly one launch, of ``kernel``, must be counted."""
+    before, by_kernel = mod.launches, dict(mod.launches_by_kernel)
+    out = run()
+    assert mod.launches == before + 1
+    assert {k: n - by_kernel[k] for k, n in mod.launches_by_kernel.items()
+            if n != by_kernel[k]} == {kernel: 1}
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kw", [{}, {"window": 64}, {"chunk": 64},
-                                {"q_offset": 37}, {"causal": False}])
-def test_flash_attention(dtype, kw):
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,kw", [
+    *((2, 100, 150, 8, 2, 64, kw) for kw in ({}, {"window": 64}, {"chunk": 64},
+                                             {"q_offset": 37}, {"causal": False})),
+    # edges of the TMA + wgmma kernel (bf16): decode-shaped, a window, Sk off
+    # its 128-key tile at both head dims
+    (2, 1, 128, 4, 2, 128, {"q_offset": 127}), (1, 256, 256, 4, 2, 128, {"window": 100}),
+    (2, 200, 200, 4, 2, 64, {}), (2, 200, 200, 4, 2, 128, {})])
+def test_flash_attention(dtype, B, Sq, Sk, Hq, Hkv, D, kw):
     g = torch.Generator("cuda").manual_seed(0)
-    q = _randn(g, 2, 100, 8, 64, dtype=dtype)
-    k, v = _randn(g, 2, 150, 2, 64, dtype=dtype), _randn(g, 2, 150, 2, 64, dtype=dtype)
-    before = fa.launches
-    got = fa.flash_attention(q, k, v, **kw)
-    assert fa.launches == before + 1
+    q = _randn(g, B, Sq, Hq, D, dtype=dtype)
+    k, v = _randn(g, B, Sk, Hkv, D, dtype=dtype), _randn(g, B, Sk, Hkv, D, dtype=dtype)
+    got = _one_launch_of(fa, fa.kernel_for(dtype, D), lambda: fa.flash_attention(q, k, v, **kw))
     torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, **kw).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
 
@@ -67,13 +83,15 @@ def test_rmsnorm(dtype, residual):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E,C,d,f", [(4, 64, 128, 128), (3, 37, 100, 60), (8, 8, 2048, 768)])
+@pytest.mark.parametrize("E,C,d,f", [
+    (4, 64, 128, 128), (3, 37, 100, 60), (8, 8, 2048, 768),
+    # edges of the TMA + wgmma kernel (bf16): C of 1, 65 and 200 rows; d and f
+    # multiples of 8 off its 64 x 128 tiles
+    (2, 1, 256, 128), (2, 65, 256, 128), (2, 200, 256, 128), (3, 40, 136, 200)])
 def test_grouped_matmul(dtype, E, C, d, f):
     g = torch.Generator("cuda").manual_seed(0)
     x, w = _randn(g, E, C, d, dtype=dtype) * 0.3, _randn(g, E, d, f, dtype=dtype) * 0.3
-    before = gmm.launches
-    got = gmm.grouped_matmul(x, w)
-    assert gmm.launches == before + 1
+    got = _one_launch_of(gmm, gmm.kernel_for(dtype, d, f), lambda: gmm.grouped_matmul(x, w))
     torch.testing.assert_close(got.float(), ref.grouped_matmul_ref(x, w).float(),
                                atol=TOL[dtype] * d, rtol=TOL[dtype])
 
@@ -150,7 +168,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "mamba2-370m"])
 def test_reduced_model_kernels_match_plain_versions(arch):
     cfg = reduced(get_config(arch))
-    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     tokens = torch.randint(2, cfg.vocab_size, (2, 40), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(1))
     with torch.no_grad():

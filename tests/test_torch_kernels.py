@@ -341,3 +341,48 @@ class TestCudaWrappers:
             ssd_scan._check(xs.bfloat16(), b, b, lda, 32)
         with pytest.raises(ValueError, match="CUDA device"):
             ssd_scan._check(xs, b, b, lda, 32)
+
+
+SM90_FA, FIRST_FA = fa.KERNELS
+SM90_GMM, FIRST_GMM = gmm.KERNELS
+
+
+class TestKernelChoice:
+    """Which kernel a CUDA call launches is a pure function of dtype and
+    shape, decided before the launch (the kernels run only on the card)."""
+
+    @pytest.mark.parametrize("dtype,head_dim,kernel", [
+        (torch.bfloat16, 64, SM90_FA), (torch.bfloat16, 128, SM90_FA),
+        (torch.bfloat16, 16, FIRST_FA), (torch.bfloat16, 32, FIRST_FA),
+        (torch.float32, 16, FIRST_FA), (torch.float32, 32, FIRST_FA),
+        (torch.float32, 64, FIRST_FA), (torch.float32, 128, FIRST_FA)])
+    def test_attention(self, dtype, head_dim, kernel):
+        assert fa.kernel_for(dtype, head_dim) == kernel
+
+    @pytest.mark.parametrize("dtype,d,f,kernel", [
+        (torch.bfloat16, 2048, 768, SM90_GMM), (torch.bfloat16, 768, 2048, SM90_GMM),
+        (torch.bfloat16, 136, 200, SM90_GMM), (torch.bfloat16, 8, 8, SM90_GMM),
+        (torch.bfloat16, 100, 64, FIRST_GMM), (torch.bfloat16, 128, 60, FIRST_GMM),
+        (torch.bfloat16, 99, 45, FIRST_GMM), (torch.bfloat16, 0, 64, FIRST_GMM),
+        (torch.float32, 2048, 768, FIRST_GMM), (torch.float32, 128, 128, FIRST_GMM)])
+    def test_grouped_matmul(self, dtype, d, f, kernel):
+        assert gmm.kernel_for(dtype, d, f) == kernel
+
+    @pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b"])
+    def test_model_shapes_take_the_new_kernels(self, arch):
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        assert fa.kernel_for(cfg.compute_dtype, cfg.head_dim) == SM90_FA
+        if cfg.family == "moe":   # up / gate (d -> f) and down (f -> d)
+            for d, f in ((cfg.d_model, cfg.expert_d_ff), (cfg.expert_d_ff, cfg.d_model)):
+                assert gmm.kernel_for(cfg.compute_dtype, d, f) == SM90_GMM
+
+    def test_counters_reset_together(self):
+        fa.launches_by_kernel[SM90_FA] += 2
+        gmm.launches_by_kernel[FIRST_GMM] += 1
+        fa.reset_launches()
+        gmm.reset_launches()
+        assert fa.launches == gmm.launches == 0
+        assert set(fa.launches_by_kernel) == set(fa.KERNELS)
+        assert not any(fa.launches_by_kernel.values()) and not any(gmm.launches_by_kernel.values())

@@ -30,7 +30,7 @@ def pair():
     jcfg = jax_reduced(jax_get_config("qwen2.5-3b"))
     cfg = reduced(get_config("qwen2.5-3b"))
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jparams, cfg, params
 
 
@@ -180,7 +180,7 @@ def test_params_from_jax_rejects_mismatched_shapes(pair):
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     tree["final_norm"]["scale"] = np.ones(cfg.d_model + 1, np.float32)
     with pytest.raises(ValueError, match="final_norm.scale"):
-        M.params_from_jax(tree, cfg)
+        M.params_from_jax(tree, cfg, "cpu")
 
 
 @pytest.mark.parametrize("family,hybrid_ssm", [("hybrid", True), ("encdec", False),
@@ -190,4 +190,4 @@ def test_unported_family_is_not_ported(family, hybrid_ssm):
     vlm raise, naming ROADMAP."""
     cfg = reduced(get_config("qwen2.5-3b"), family=family, hybrid_ssm=hybrid_ssm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Model(cfg)
+        M.Model(cfg, "cpu")

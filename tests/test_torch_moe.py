@@ -41,7 +41,7 @@ def pair():
     jcfg = jax_reduced(jax_get_config(ARCH))
     cfg = reduced(get_config(ARCH))
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jparams, cfg, params
 
 

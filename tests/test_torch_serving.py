@@ -36,7 +36,7 @@ def model():
     jcfg = jax_reduced(jax_get_config("qwen2.5-3b"))
     cfg = reduced(get_config("qwen2.5-3b"))
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
-    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jparams, cfg, params
 
 

@@ -40,7 +40,7 @@ def pair():
     jcfg = jax_reduced(jax_get_config(ARCH))
     cfg = reduced(get_config(ARCH))
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jparams, cfg, params
 
 
@@ -237,4 +237,4 @@ def test_init_params_constants():
 def test_split_projection_layout_is_not_ported():
     cfg = dataclasses.replace(reduced(get_config(ARCH)), ssm_split_proj=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Model(cfg)
+        M.Model(cfg, "cpu")

@@ -6,31 +6,42 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. Device and build: print the card's name and power limit
-   (``nvidia-smi``), build the six CUDA kernels from
+   (``nvidia-smi``), build the eight CUDA kernels from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel) and print the
    build time and the compiler's register / shared memory report.
 2. Kernels: hold each kernel against its plain PyTorch version on the
    card, at the paths' shapes and at small cases, each case through the
    public wrapper with one counted launch of the kernel that
    ``kernel_for`` picks by dtype and shape:
-   RMSNorm (residual, (B, S, H, hd) input, ragged and wide d) and flash
-   attention (GQA, MQA, MHA, ragged S, window, chunk, decode offset, cross
-   attention, head dims 16-128; bf16 at head dim 64 / 128 takes the TMA +
-   wgmma kernel, with its edges: decode-shaped, a window, Sk off its
-   128-key tile) at atol = rtol = 2e-5 in f32 and 2e-2 in bf16; grouped
-   matmul (the reference's cases in f32 and bf16, ragged C, d and f, the
-   MoE prefill and decode shapes; bf16 with d, f multiples of 8 takes the
-   TMA + wgmma kernel, with C of 1, 65, 200 and 300 and d, f off its tiles)
-   at atol = TOL·d, rtol = TOL as the reference's test, plus relative L2
-   <= 1e-5 (f32) / 5e-3 (bf16); SSD (the reference's cases, the mamba2
-   shape, ragged S, an init_state chained into the sequential decode
-   recurrence) at 1e-3 against ``ssd_ref`` and ``ssd_chunked_ref``. Time
-   each kernel, its plain version and one PyTorch library call where one
+   RMSNorm (residual, (B, S, H, hd) input, ragged and wide d; d a multiple
+   of 16 16-byte vectors takes the register-resident kernel, with its
+   edges: 16-lane rows, 2-8 warps a row, bf16 w, a partly filled lane, a
+   grid tail) and flash attention (GQA, MQA, MHA, ragged S, window, chunk,
+   decode offset, cross attention, head dims 16-128; bf16 at head dim 64 /
+   128 takes the TMA + wgmma kernel, with its edges: decode-shaped, a
+   window, Sk off its 128-key tile) at atol = rtol = 2e-5 in f32 and 2e-2
+   in bf16; grouped matmul (the reference's cases in f32 and bf16, ragged
+   C, d and f, the MoE prefill and decode shapes; bf16 with d, f multiples
+   of 8 takes the TMA + wgmma kernel, with C of 1, 65, 200 and 300 and d, f
+   off its tiles) at atol = TOL·d, rtol = TOL as the reference's test, plus
+   relative L2 <= 1e-5 (f32) / 5e-3 (bf16); SSD (the reference's cases, the
+   mamba2 shape, ragged S, a chunk of 12, N 96, more heads a group than a
+   block takes, each with an init_state, and a prefill state chained into
+   the sequential decode recurrence; P <= 64 takes the 3xTF32 tensor-core
+   kernel, head dim 128 the first design) at 1e-3 against ``ssd_ref`` and
+   ``ssd_chunked_ref``; at the mamba2 shape the tensor-core kernel's y and
+   end-state also within relative L2 SSD_REL of the plain version in f32,
+   where single-pass TF32 (the plain version with TF32 matmuls) must fall
+   outside it. Time each kernel, its plain version, its first design
+   (through its raw launcher) and one PyTorch library call where one
    computes the same function (``F.rms_norm``,
    ``F.scaled_dot_product_attention``, ``torch.bmm``; the port never calls
-   them) with CUDA events at the paths' shapes; for flash attention (dense
-   and MoE prefill) and grouped matmul (prefill and decode) also the first
-   design, through its raw launcher.
+   them) with CUDA events at the paths' shapes: RMSNorm at the prefill,
+   decode, qk-norm and mamba2 block shapes beside the launch floor (a
+   one-element ``zero_()``) timed the same way, flash attention at the
+   dense and MoE prefill shapes, grouped matmul at prefill and decode, SSD
+   at the mamba2 shape and its bound both ways (f32 CUDA cores, and bytes
+   against 3xTF32 tensor-core operations).
 3. Paths, one model at a time (the previous one freed first), each driven
    the same way: 4 tenants each prefill batch 4 x 512 tokens, then 8
    greedy decode steps each from 4 threads through the port's
@@ -38,25 +49,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    counts are set to 0 just before each path and read just after. Every
    path checks: no batch fell back to serial replay, some batch held more
    than one tenant, the structural intern cache was hit by tenants 2..4.
-   The first designs of flash attention and grouped matmul launch 0
-   times on every path.
+   The first designs of all four kernels launch 0 times on every path.
    a. qwen2.5-3b, full width and depth: the TMA + wgmma flash attention
-      launched 36 times a tenant in prefill, RMSNorm in prefill and
-      decode; tenant 0's logits (prefill and one decode step) with the
-      kernels against the plain versions within relative L2 2e-2.
+      launched 36 times a tenant in prefill, the register-resident
+      RMSNorm in prefill and decode; tenant 0's logits (prefill and one
+      decode step) with the kernels against the plain versions within
+      relative L2 2e-2.
    b. qwen3-moe-30b-a3b, full width, 16 of 48 layers (f32 params do not
       fit one card): the TMA + wgmma grouped matmul launched 48 times a
       tenant in prefill and in decode, the TMA + wgmma flash attention 16
-      times a tenant and RMSNorm in prefill; in f32 (same
+      times a tenant and RMSNorm in prefill and decode; in f32 (same
       weights) tenant 0's prefill logits and one decode step within
       relative L2 1e-3, the plain run taking the kernel run's top-k expert
       choices (printed: how many its own router would change); in bf16
       layer 0's MoE on one input within relative L2 2e-2 (identical
       routing); the bf16 whole-model gap, unpinned, printed without limit.
-   c. mamba2-370m, full width and depth: SSD launched 48 times a tenant in
-      prefill and never in decode, RMSNorm in both; in f32 (same weights)
-      tenant 0's prefill logits and one decode step within relative L2
-      1e-3; in bf16 layer 0's mixer on one input within relative L2 2e-2;
+   c. mamba2-370m, full width and depth: the tensor-core SSD launched 48
+      times a tenant in prefill and never in decode, RMSNorm in both; in
+      f32 (same weights) tenant 0's prefill logits and one decode step
+      within relative L2 1e-3; in bf16 layer 0's mixer on one input
+      within relative L2 2e-2;
       the bf16 gap at depths 3, 12, 24 and 48 printed without limit
       (one-ulp differences grow with depth through the random-weight
       stack).
@@ -71,6 +83,7 @@ beside this file.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import re
@@ -87,13 +100,18 @@ import torch.nn.functional as F
 SRC = Path(__file__).resolve().parent / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense; f32 off tensor cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 495e12,
+              torch.float32: 67e12}   # dense; f32 off the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 GMM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 SSD_TOL = 1e-3
+# relative L2 of the 3xTF32 SSD kernel's y and end-state at the mamba2 shape:
+# 3xTF32 emulated on the CPU gives ~3e-7, single-pass TF32 ~3e-4
+SSD_REL = 1e-5
 
 TENANTS, BATCH, PROMPT, DECODE_STEPS = 4, 4, 512, 8
-FIRST_DESIGNS = ("flash_attention", "grouped_matmul")   # kept for f32 and shapes TMA cannot take
+FIRST_DESIGNS = ("flash_attention", "grouped_matmul", "rmsnorm",
+                 "ssd_chunk")   # kept for the dtypes and shapes the new kernels do not take
 MOE_LAYERS = 16                     # of 48: f32 params of all 48 take 122 GB
 
 
@@ -176,16 +194,22 @@ def entry(name, source, replaces, err, tol, kernel_ms, plain_ms, lib_ms, bound_m
             "bound_by": bound_by, "shape": shape, "dtype": dtype}
 
 
+def one_launch(name: str, mod, kernel: str, run):
+    """``run()`` must count exactly one launch, of ``kernel``."""
+    before = dict(mod.launches_by_kernel)
+    out = run()
+    rose = {k: n - before[k] for k, n in mod.launches_by_kernel.items() if n != before[k]}
+    if rose != {kernel: 1}:
+        raise AssertionError(f"{name}: want one launch of {kernel}, counted {rose}")
+    return out
+
+
 def check_case(name: str, mod, kernel: str, run, want: torch.Tensor, atol: float,
                rtol: float | None = None) -> tuple[torch.Tensor, float]:
     """Run one case through the public wrapper, require that exactly one
     launch of ``kernel`` (the one ``mod.kernel_for`` picks) was counted, and
     compare with the plain version."""
-    before = dict(mod.launches_by_kernel)
-    got = run()
-    rose = {k: n - before[k] for k, n in mod.launches_by_kernel.items() if n != before[k]}
-    if rose != {kernel: 1}:
-        raise AssertionError(f"{name}: want one launch of {kernel}, counted {rose}")
+    got = one_launch(name, mod, kernel, run)
     return got, compare(f"{name} [{kernel}]", got, want, atol, rtol)
 
 
@@ -214,33 +238,65 @@ def check_rmsnorm(rms, ref, gen) -> dict:
         ((33, 1000), torch.float32, torch.float32, False),                 # ragged d
         ((8, 8192), torch.bfloat16, torch.float32, True),                  # widest d
         ((5, 16), torch.float32, torch.float32, False),
+        # the register-resident kernel's edges: 16-lane rows, widths 1024 and
+        # 2048 in both dtypes, w in bf16, 2-8 warps a row, a partly filled
+        # lane (48 vectors), a grid tail, f32 at d 64 (16 lanes)
+        ((3, 7, 4, 128), torch.bfloat16, torch.bfloat16, True),
+        ((65, 1024), torch.float32, torch.bfloat16, False),
+        ((65, 1024), torch.bfloat16, torch.bfloat16, True),
+        ((33, 2048), torch.float32, torch.bfloat16, True),
+        ((16, 4096), torch.bfloat16, torch.bfloat16, False),
+        ((6, 8192), torch.float32, torch.float32, True),
+        ((9, 384), torch.bfloat16, torch.float32, False),
+        ((1, 2048), torch.bfloat16, torch.float32, True),
+        ((40_001, 128), torch.bfloat16, torch.float32, False),
+        ((11, 64), torch.float32, torch.float32, True),
     ]
-    worst = 0.0
+    worst, by_kernel = 0.0, {}
     for shape, xdt, wdt, res in cases:
         x = randn(*shape, dtype=xdt, gen=gen)
         w = randn(shape[-1], dtype=wdt, gen=gen)
         r = randn(*shape, dtype=xdt, gen=gen) if res else None
-        err = compare(f"rmsnorm {shape} {xdt} res={res}", rms.rmsnorm(x, w, residual=r),
-                      ref.rmsnorm_ref(x, w, residual=r), TOL[xdt])
+        kernel = rms.kernel_for(xdt, shape[-1])
+        _, err = check_case(f"rmsnorm {shape} {xdt} w {wdt} res={res}", rms, kernel,
+                            lambda: rms.rmsnorm(x, w, residual=r),
+                            ref.rmsnorm_ref(x, w, residual=r), TOL[xdt])
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
         if shape[0] == TENANTS * PROMPT:
             worst = max(worst, err)
-    log(f"rmsnorm: {len(cases)} cases agree (main-path max abs err {worst:.3g})")
+    log(f"rmsnorm: {len(cases)} cases agree ({by_kernel}; main-path max abs err {worst:.3g})")
 
-    n, d = TENANTS * PROMPT, 2048
-    x = randn(n, d, dtype=torch.bfloat16, gen=gen)
-    w = randn(d, dtype=torch.float32, gen=gen)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    kernel_ms = time_ms(lambda: rms.rmsnorm(x, w), flush=flush)
-    plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, w), flush=flush)
-    lib_ms = library_ms("F.rms_norm", lambda: F.rms_norm(x, (d,), w, 1e-6), flush)
-    b_ms, b_by = bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
-                       4 * x.numel(), torch.float32)
-    dec = randn(TENANTS * BATCH, d, dtype=torch.bfloat16, gen=gen)
-    log(f"rmsnorm timing ({n}x{d} bf16): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.rms_norm {lib_ms} ms, bound {b_ms:.4f} ms; decode "
-        f"{TENANTS * BATCH}x{d}: kernel {time_ms(lambda: rms.rmsnorm(dec, w), flush=flush):.4f} ms")
-    return entry("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:33", worst,
-                 TOL[torch.bfloat16], kernel_ms, plain_ms, lib_ms, b_ms, b_by, [n, d], "bfloat16")
+    one = torch.empty(1, device="cuda")
+    floor_ms = time_ms(one.zero_, flush=flush)   # the cheapest launch PyTorch makes
+    log(f"rmsnorm timing (bf16 x, f32 w; first design through its raw launcher); a "
+        f"one-element zero_() takes {floor_ms:.4f} ms through the same events:")
+    shapes = {}
+    for label, (n, d) in (("prefill", (TENANTS * PROMPT, 2048)),
+                          ("decode", (TENANTS * BATCH, 2048)),
+                          ("qk-norm", (TENANTS * PROMPT * 32, 128)),
+                          ("mamba2 block", (TENANTS * PROMPT, 1024))):
+        x = randn(n, d, dtype=torch.bfloat16, gen=gen)
+        w = randn(d, dtype=torch.float32, gen=gen)
+        kernel_ms = time_ms(lambda: rms.rmsnorm(x, w), flush=flush)
+        first_ms = time_ms(lambda: rms.launch_kernel("rmsnorm", x, w), flush=flush)
+        plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, w), flush=flush)
+        lib_ms = library_ms("F.rms_norm", lambda: F.rms_norm(x, (d,), w, 1e-6), flush)
+        b_ms, b_by = bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
+                           4 * x.numel(), torch.float32)
+        log(f"  {label} ({n}, {d}): kernel {kernel_ms:.4f} ms ({b_ms / kernel_ms:.1%} of the "
+            f"{b_by} bound {b_ms:.4f} ms); first design {first_ms:.4f} ms; new / first "
+            f"{kernel_ms / first_ms:.3f}; plain {plain_ms:.4f} ms; F.rms_norm {lib_ms} ms")
+        shapes[label] = {"shape": [n, d], "ms": kernel_ms, "first_design_ms": first_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+    shapes["decode"]["launch_floor_ms"] = floor_ms
+    pre = shapes["prefill"]
+    e = entry("rmsnorm", "rmsnorm_sm90.cu", "src/repro/kernels/rmsnorm.py:33", worst,
+              TOL[torch.bfloat16], pre["ms"], pre["plain_ms"], pre["library_ms"],
+              pre["bound_ms"], pre["bound_by"], pre["shape"], "bfloat16")
+    e["first_design_ms"], e["by_shape"] = pre["first_design_ms"], shapes
+    return e
 
 
 def check_attention(fa, ref, gen) -> dict:
@@ -393,39 +449,79 @@ def check_ssd(ssd, ref, gen) -> dict:
     cases = [(2, 128, 2, 32, 1, 16, 32), (2, 256, 4, 64, 2, 32, 64),
              (2, 64, 2, 16, 1, 64, 64),                            # the reference's three
              (Bz, S, H, P, G, N, Q),                               # the path's shape
-             (2, 100, 4, 16, 1, 16, 32)]                           # ragged S
-    worst = 0.0
+             (2, 100, 4, 16, 1, 16, 32),                           # ragged S
+             # the tensor-core kernel's edges: more heads a group than a block
+             # takes, a chunk of 12 (zero-filled to 32), N 8 and 96; then a
+             # head dim it does not take (the first design)
+             (2, 256, 8, 64, 1, 64, 64), (1, 12, 4, 16, 2, 8, 16), (2, 192, 6, 32, 2, 96, 64),
+             (1, 128, 2, 128, 1, 32, 64)]
+    worst, by_kernel = 0.0, {}
     for case in cases:
         b_, s_, h_, p_, g_, n_, q_ = case
         x, dt, A, Bm, Cm, D = _ssd_inputs(gen, b_, s_, h_, p_, g_, n_)
-        y, hT = ssd.ssd(x, dt, A, Bm, Cm, D=D, chunk=q_)
-        y_seq, h_seq = ref.ssd_ref(x, dt, A, Bm, Cm, D=D)
-        y_chk, h_chk = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D=D, chunk=q_)
+        h0 = randn(b_, h_, p_, n_, dtype=torch.float32, gen=gen, scale=0.3)
+        kernel = ssd.kernel_for(p_, n_, min(q_, s_))
+        y, hT = one_launch(f"ssd {case}", ssd, kernel,
+                           lambda: ssd.ssd(x, dt, A, Bm, Cm, D=D, init_state=h0, chunk=q_))
+        y_seq, h_seq = ref.ssd_ref(x, dt, A, Bm, Cm, D=D, init_state=h0)
+        y_chk, h_chk = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D=D, init_state=h0,
+                                           chunk=min(q_, s_))
         for label, want_y, want_h in (("ssd_ref", y_seq, h_seq), ("ssd_chunked_ref", y_chk, h_chk)):
-            err = compare(f"ssd {case} y vs {label}", y, want_y, SSD_TOL)
-            compare(f"ssd {case} state vs {label}", hT, want_h, SSD_TOL)
+            err = compare(f"ssd {case} [{kernel}] y vs {label}", y, want_y, SSD_TOL)
+            compare(f"ssd {case} [{kernel}] state vs {label}", hT, want_h, SSD_TOL)
             if case == (Bz, S, H, P, G, N, Q):
                 worst = max(worst, err)
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
     # prefill state chained into the sequential decode recurrence
     x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 96, 2, 16, 1, 8)
     y_all, _ = ref.ssd_ref(x, dt, A, Bm, Cm)
     cut = 64
-    _, h = ssd.ssd(x[:, :cut], dt[:, :cut], A, Bm[:, :cut], Cm[:, :cut], chunk=32)
+    _, h = one_launch("ssd chaining", ssd, ssd.kernel_for(16, 8, 32),
+                      lambda: ssd.ssd(x[:, :cut], dt[:, :cut], A, Bm[:, :cut], Cm[:, :cut],
+                                      chunk=32))
     ys = []
     for t in range(cut, 96):
         y_t, h = ref.ssd_ref(x[:, t:t + 1], dt[:, t:t + 1], A, Bm[:, t:t + 1],
                              Cm[:, t:t + 1], init_state=h)
         ys.append(y_t)
     compare("ssd state chaining", torch.cat(ys, 1), y_all[:, cut:], SSD_TOL)
-    log(f"ssd: {len(cases) + 1} cases agree (path-shape max abs err {worst:.3g})")
+    log(f"ssd: {len(cases) + 1} cases agree ({by_kernel}; path-shape max abs err {worst:.3g})")
 
-    # the kernel alone, at the path's shape, from ssd()'s own layouts
+    # the kernels alone, at the path's shape, from ssd()'s own layouts
     x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, Bz, S, H, P, G, N)
     xs = ssd._rows_first(x * dt[..., None])
     bg, cg = ssd._rows_first(Bm), ssd._rows_first(Cm)
     lda = ssd._rows_first(dt * A)
+    want = ref.ssd_intra_chunk_ref(xs, bg, cg, lda, Q)
+    new = ssd.KERNELS[0]
+    smem_fn = ssd._build.library(new).ssd_chunk_sm90_smem_bytes
+    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_size_t
+    for n_ in (8, 96, N):   # the wrapper states the launcher's sum
+        launcher, wrapper = smem_fn(n_), ssd.smem_bytes(Q, P, n_, new)
+        if launcher != wrapper:
+            raise AssertionError(f"ssd smem_bytes(N {n_}): launcher {launcher}, "
+                                 f"wrapper {wrapper}")
+    got = ssd.launch_kernel(new, xs, bg, cg, lda, Q)
+    for name, g_, w_ in zip(("y", "state", "cdecay"), got, want):
+        compare(f"ssd_intra_chunk {new} {name}", g_, w_, SSD_TOL)
+    # f32 accuracy on the tensor cores: the split's terms must all be there
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = ref.ssd_intra_chunk_ref(xs, bg, cg, lda, Q)   # single-pass TF32
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rel = {}
+    for name, i in (("y", 0), ("state", 1)):
+        rel[name] = (rel_l2(got[i], want[i]), rel_l2(control[i], want[i]))
+        if not rel[name][0] <= SSD_REL < rel[name][1]:
+            raise AssertionError(f"ssd_intra_chunk {new} {name}: relative L2 {rel[name][0]:.3g} "
+                                 f"(single-pass TF32 {rel[name][1]:.3g}) against {SSD_REL}")
+    log(f"ssd_intra_chunk {new} relative L2 of the f32 plain version (limit {SSD_REL}): "
+        + "; ".join(f"{k} {a:.3g} (single-pass TF32 {b:.3g})" for k, (a, b) in rel.items()))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     kernel_ms = time_ms(lambda: ssd.ssd_intra_chunk(xs, bg, cg, lda, Q), flush=flush)
+    first_ms = time_ms(lambda: ssd.launch_kernel("ssd_chunk", xs, bg, cg, lda, Q), flush=flush)
     plain_ms = time_ms(lambda: ref.ssd_intra_chunk_ref(xs, bg, cg, lda, Q), flush=flush)
     BH, nc = Bz * H, S // Q
     pairs = nc * Q * (Q + 1) // 2                # causal (i, j) pairs of a chunk
@@ -433,12 +529,22 @@ def check_ssd(ssd, ref, gen) -> dict:
     flops = 2 * pairs * (Bz * G * N + BH * P) + 2 * BH * nc * Q * N * P
     nbytes = 4 * (2 * xs.numel() + bg.numel() + cg.numel() + lda.numel()
                   + BH * nc * (N * P + 1))
-    b_ms, b_by = bound(nbytes, flops, torch.float32)
-    log(f"ssd_intra_chunk timing (BH {BH}, S {S}, Q {Q}, P {P}, N {N} f32): kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s achieved)")
-    return entry("ssd_intra_chunk", "ssd_chunk.cu", "src/repro/kernels/ssd_scan.py:69",
-                 worst, SSD_TOL, kernel_ms, plain_ms, None, b_ms, b_by, [BH, S, Q, P, N], "float32")
+    f32_ms, f32_by = bound(nbytes, flops, torch.float32)
+    b_ms, b_by = bound(nbytes, 3 * flops, "tf32")   # three TF32 products each (3xTF32)
+    log(f"ssd_intra_chunk timing (BH {BH}, S {S}, Q {Q}, P {P}, N {N} f32; first design "
+        f"through its raw launcher):")
+    log(f"  kernel {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s of f32 work, "
+        f"{b_ms / kernel_ms:.1%} of the {b_by} bound {b_ms:.4f} ms: {nbytes / 1e6:.1f} MB, "
+        f"{3 * flops / 1e9:.2f} GFLOP of TF32 at 495 TFLOP/s)")
+    log(f"  first design {first_ms:.4f} ms ({flops / first_ms / 1e9:.1f} TFLOP/s; its "
+        f"{f32_by} bound on the f32 CUDA cores {f32_ms:.4f} ms); new / first "
+        f"{kernel_ms / first_ms:.3f}; plain {plain_ms:.4f} ms")
+    e = entry("ssd_intra_chunk", "ssd_chunk_sm90.cu", "src/repro/kernels/ssd_scan.py:69",
+              worst, SSD_TOL, kernel_ms, plain_ms, None, b_ms, b_by, [BH, S, Q, P, N], "float32")
+    e.update(first_design_ms=first_ms, f32_core_bound_ms=f32_ms,
+             rel_l2={k: {"kernel": a, "single_pass_tf32": b} for k, (a, b) in rel.items()},
+             rel_l2_limit=SSD_REL)
+    return e
 
 
 # ---------------------------------------------------------------- paths
@@ -467,9 +573,11 @@ def device_profile(label: str, fn) -> None:
             f"(the profiler recorded no CUDA activity)")
         return
     groups = {"flash_attention kernel": ("fa_sm90", "fa_fwd"),   # before cuBLAS's "sm90"
-              "rmsnorm kernel": ("rmsnorm_kernel",),
+              "rmsnorm_sm90 kernel": ("rmsnorm_sm90",),
+              "rmsnorm kernel (first design)": ("rmsnorm_kernel",),
               "grouped_matmul kernel": ("gmm_sm90", "gmm_bf16", "gmm_f32"),
-              "ssd kernel": ("ssd_chunk",),
+              "ssd_chunk_sm90 kernel": ("ssd_chunk_sm90",),
+              "ssd kernel (first design)": ("ssd_chunk_kernel",),
               "matmul (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass", "sm90")}
     other = "other (casts, elementwise, softmax, copies)"
     shares = {g: 0.0 for g in groups}
@@ -658,6 +766,11 @@ def init_model(cfg):
     return params
 
 
+def need_both(run: dict, kernel: str) -> None:
+    if not (run["prefill"][kernel] > 0 and run["decode"][kernel] > 0):
+        raise AssertionError(f"{kernel} did not launch in both prefill and decode")
+
+
 def run_dense(kernels, registry) -> dict:
     from repro_torch.configs import get_config
 
@@ -668,8 +781,7 @@ def run_dense(kernels, registry) -> dict:
         raise AssertionError(f"flash attention (TMA + wgmma) launched "
                              f"{run['prefill']['flash_attention_sm90']} times in prefill, not "
                              f"{cfg.num_layers} a tenant")
-    if not (run["prefill"]["rmsnorm"] > 0 and run["decode"]["rmsnorm"] > 0):
-        raise AssertionError("rmsnorm kernel did not launch in both prefill and decode")
+    need_both(run, "rmsnorm_sm90")
     gap = logits_gap(params, cfg, run["prompts"][0], run["max_len"], registry,
                      run["states"][0]["out"][0])
     check_gap("dense", gap, 2e-2)
@@ -747,8 +859,7 @@ def run_moe(kernels, registry) -> dict:
         raise AssertionError(f"flash attention (TMA + wgmma) launched "
                              f"{run['prefill']['flash_attention_sm90']} times in MoE prefill, "
                              f"not {cfg.num_layers} a tenant")
-    if not run["prefill"]["rmsnorm"] > 0:
-        raise AssertionError("rmsnorm never launched in MoE prefill")
+    need_both(run, "rmsnorm_sm90")
 
     prompt, first = run["prompts"][0], run["states"][0]["out"][0]
     n = cfg.num_layers
@@ -799,13 +910,12 @@ def run_mamba(kernels, registry) -> dict:
     cfg = get_config("mamba2-370m")
     params = init_model(cfg)
     run = serve_path("mamba2", cfg, params, kernels)
-    if run["prefill"]["ssd_chunk"] != TENANTS * cfg.num_layers:
-        raise AssertionError(f"SSD launched {run['prefill']['ssd_chunk']} times in "
-                             f"prefill, not {cfg.num_layers} a tenant")
-    if run["decode"]["ssd_chunk"] != 0:
+    if run["prefill"]["ssd_chunk_sm90"] != TENANTS * cfg.num_layers:
+        raise AssertionError(f"SSD (tensor cores) launched {run['prefill']['ssd_chunk_sm90']} "
+                             f"times in prefill, not {cfg.num_layers} a tenant")
+    if run["decode"]["ssd_chunk_sm90"] != 0:
         raise AssertionError("SSD kernel launched in decode (the recurrence runs there)")
-    if not (run["prefill"]["rmsnorm"] > 0 and run["decode"]["rmsnorm"] > 0):
-        raise AssertionError("rmsnorm kernel did not launch in both prefill and decode")
+    need_both(run, "rmsnorm_sm90")
     prompt, first = run["prompts"][0], run["states"][0]["out"][0]
     # (a) f32, same weights: the kernels against the plain versions
     check_gap("mamba2 f32", logits_gap(params, dataclasses.replace(cfg, dtype="float32"),
@@ -881,8 +991,7 @@ def main() -> int:
                check_grouped_matmul(gmm, ref, gen), check_ssd(ssd, ref, gen)]
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
 
-    kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm,
-               "ssd_chunk": ssd}
+    kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm, "ssd": ssd}
     runs = {}
     for label, run_fn in (("dense", run_dense), ("moe", run_moe), ("mamba2", run_mamba)):
         torch.cuda.empty_cache()

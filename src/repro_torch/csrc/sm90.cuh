@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (flash_attention_sm90.cu, grouped_matmul_sm90.cu): mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and instructions, and the host-side
-// encoding of a TMA tensor map.
+// Hopper (sm_90a) building blocks shared by the wgmma kernels
+// (flash_attention_sm90.cu, grouped_matmul_sm90.cu, ssd_chunk_sm90.cu):
+// mbarriers, TMA tile loads, wgmma shared-memory descriptors, instructions
+// and proxy fence, and the host-side encoding of a TMA tensor map.
 //
 // Every operand tile lives in shared memory in the 128-byte swizzled layout
 // that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: a box of 64 bf16 (128
@@ -108,6 +108,14 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's ordinary shared-memory stores before later reads by
+// the async proxy (wgmma operands). A thread that writes an operand with
+// plain stores calls it after them and before the barrier that precedes
+// the wgmma; operands that TMA writes need no such fence.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Keep the compiler from moving accesses of accumulator registers across

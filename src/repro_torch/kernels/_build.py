@@ -23,8 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rmsnorm", "flash_attention", "flash_attention_sm90", "grouped_matmul",
-           "grouped_matmul_sm90", "ssd_chunk")
+SOURCES = ("rmsnorm", "rmsnorm_sm90", "flash_attention", "flash_attention_sm90",
+           "grouped_matmul", "grouped_matmul_sm90", "ssd_chunk", "ssd_chunk_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

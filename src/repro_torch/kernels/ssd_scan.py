@@ -1,12 +1,14 @@
-"""Mamba-2 SSD chunked scan: wrapper of ``csrc/ssd_chunk.cu`` and the full
-:func:`ssd` around it.
+"""Mamba-2 SSD chunked scan: wrapper of ``csrc/ssd_chunk_sm90.cu`` and
+``csrc/ssd_chunk.cu``, and the full :func:`ssd` around them.
 
-Replaces ``repro.kernels.ssd_scan`` (see the source note in the ``.cu``
-file for the bound and the design). The intra-chunk pass is the custom op
-``repro_torch::ssd_intra_chunk`` (CUDA tensors launch the kernel or raise;
+Replaces ``repro.kernels.ssd_scan`` (see the source notes in the ``.cu``
+files for the bounds and the designs). The intra-chunk pass is the custom
+op ``repro_torch::ssd_intra_chunk`` (CUDA tensors launch a kernel or raise;
 CPU tensors take :func:`ref.ssd_intra_chunk_ref`); its vmap rule folds the
-vmapped dim into the batch·head rows. :func:`ssd` does the rest in plain
-torch, as the reference does in ``jnp``: the layout change, the
+vmapped dim into the batch·head rows. Which kernel a CUDA call launches
+depends on its shape and on whether its inputs start on 16-byte boundaries
+(:func:`kernel_for`). :func:`ssd` does the rest
+in plain torch, as the reference does in ``jnp``: the layout change, the
 inter-chunk recurrence (a Python loop over the chunks where the reference
 has a ``lax.scan``), the cross-chunk correction and the ``D`` skip. A
 ragged S is padded with dt = 0 steps (:func:`ref.pad_ragged`).
@@ -26,8 +28,16 @@ MAX_CHUNK = 128
 MAX_HEADDIM = 128
 MAX_SMEM = 232448          # bytes of shared memory a block may have on the H100
 
-#: Kernel launches since the last reset (one per launch, nowhere else).
+#: The kernels, by source: 3xTF32 tensor cores fed by cp.async (head dim
+#: <= 64, P and N multiples of 4, within shared memory, 16-byte aligned
+#: inputs) and the first design (f32 CUDA cores; any P <= 128).
+KERNELS = ("ssd_chunk_sm90", "ssd_chunk")
+SM90_MAX_HEADDIM = 64
+
+#: Kernel launches since the last reset (one per launch, nowhere else):
+#: the total, and by kernel.
 launches = 0
+launches_by_kernel = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
 
@@ -35,22 +45,47 @@ def reset_launches() -> None:
     global launches
     with _count_lock:
         launches = 0
+        for name in KERNELS:
+            launches_by_kernel[name] = 0
 
 
 @functools.cache
-def _launcher():
-    fn = _build.library("ssd_chunk").ssd_chunk_launch
+def _launcher(name: str):
+    fn = getattr(_build.library(name), f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(chunk: int, P: int, N: int) -> int:
-    """Shared memory a block needs (the kernel's launcher uses the same sum):
-    B (padded) and C·Bᵀ of the chunk, then C or (xs and one 64-row score
-    tile) in one buffer, cums and dte."""
+def smem_bytes(chunk: int, P: int, N: int, kernel: str = KERNELS[1]) -> int:
+    """Shared memory a block of ``kernel`` needs (its launcher uses the same sum).
+
+    ``ssd_chunk_sm90`` (tiles fixed at 128 steps by 64 head columns, N
+    padded to a multiple of 32): B, C·Bᵀ, the next head's xs, then C or
+    this head's xs as TF32 hi and lo planes, rows of cumulative sums for
+    the 4 heads a block takes, and 1024 bytes to align the planes.
+    ``ssd_chunk``: B (padded) and C·Bᵀ of the chunk, then C or (xs and one
+    64-row score tile) in one buffer, cums and dte."""
     Q = chunk
+    if kernel == KERNELS[0]:
+        Np = -(-N // 32) * 32
+        return 4 * (128 * Np + 128 * 128 + 128 * 64 + max(128 * Np, 2 * 128 * 64)
+                    + 4 * 128) + 1024
     return 4 * (Q * (N + 1) + Q * (Q + 1) + max(Q * N, Q * P + 64 * (Q + 1)) + 2 * Q)
+
+
+def kernel_for(P: int, N: int, chunk: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call with head dim P, state N and this chunk
+    launches: the tensor-core kernel where its tiles take the shape (P <=
+    64, P and N multiples of 4 for its 16-byte copies, and its shared
+    memory within the H100's; every served shape and the reference's test
+    cases) and xs, b and c start on 16-byte boundaries (``aligned``), else
+    the first design."""
+    if (aligned and 1 <= chunk <= MAX_CHUNK and 1 <= P <= SM90_MAX_HEADDIM and P % 4 == 0
+            and N >= 1 and N % 4 == 0
+            and smem_bytes(chunk, P, N, KERNELS[0]) <= MAX_SMEM):
+        return KERNELS[0]
+    return KERNELS[1]
 
 
 def _check(xs, b, c, lda, chunk: int) -> None:
@@ -66,9 +101,11 @@ def _check(xs, b, c, lda, chunk: int) -> None:
                          f"got chunk {chunk}, S {S}")
     if not 1 <= P <= MAX_HEADDIM:
         raise ValueError(f"SSD kernel takes head dim 1..{MAX_HEADDIM}, got {P}")
-    if smem_bytes(chunk, P, N) > MAX_SMEM:
-        raise ValueError(f"SSD kernel: chunk {chunk}, P {P}, N {N} need "
-                         f"{smem_bytes(chunk, P, N)} bytes of shared memory (> {MAX_SMEM})")
+    kernel = kernel_for(P, N, chunk, _aligned(xs, b, c))
+    if smem_bytes(chunk, P, N, kernel) > MAX_SMEM:
+        raise ValueError(f"SSD kernel {kernel}: chunk {chunk}, P {P}, N {N} need "
+                         f"{smem_bytes(chunk, P, N, kernel)} bytes of shared memory "
+                         f"(> {MAX_SMEM})")
     tensors = (xs, b, c, lda)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("SSD kernel takes float32 xs, b, c and lda")
@@ -78,11 +115,33 @@ def _check(xs, b, c, lda, chunk: int) -> None:
         raise ValueError("SSD kernel needs contiguous xs, b, c and lda")
 
 
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _empty_outputs(xs, b, chunk):
     BH, S, P = xs.shape
     nc, N = S // chunk, b.shape[2]
     return (xs.new_empty((BH, S, P)), xs.new_empty((BH, nc, N, P)),
             xs.new_empty((BH, nc, 1, 1)))
+
+
+def launch_kernel(name: str, xs, b, c, lda, chunk: int):
+    """Launch kernel ``name`` (one of :data:`KERNELS`) once on checked,
+    non-empty inputs and return (y, state, cdecay). Counts nothing: the
+    custom op counts its own launches, and a caller that times or compares
+    a kernel through this function stays out of the counts."""
+    y, state, cdecay = _empty_outputs(xs, b, chunk)
+    BH, S, P = xs.shape
+    args = [xs.data_ptr(), b.data_ptr(), c.data_ptr(), lda.data_ptr(), y.data_ptr(),
+            state.data_ptr(), cdecay.data_ptr(), BH, S, chunk, P, b.shape[2],
+            BH // b.shape[0]]
+    if name == KERNELS[0] and not _aligned(xs, b, c):
+        raise ValueError(f"{name} needs 16-byte aligned xs, b and c (cp.async)")
+    err = _launcher(name)(*args, torch.cuda.current_stream(xs.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return y, state, cdecay
 
 
 @torch.library.custom_op("repro_torch::ssd_intra_chunk", mutates_args=(),
@@ -92,19 +151,15 @@ def _ssd_intra_chunk_cuda(xs: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global launches
     _check(xs, b, c, lda, chunk)
-    y, state, cdecay = _empty_outputs(xs, b, chunk)
-    BH, S, P = xs.shape
-    if y.numel() == 0:
+    if xs.numel() == 0:
+        y, state, cdecay = _empty_outputs(xs, b, chunk)
         return y, state.zero_(), cdecay.zero_()
-    err = _launcher()(
-        xs.data_ptr(), b.data_ptr(), c.data_ptr(), lda.data_ptr(), y.data_ptr(),
-        state.data_ptr(), cdecay.data_ptr(), BH, S, chunk, P, b.shape[2],
-        BH // b.shape[0], torch.cuda.current_stream(xs.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"SSD intra-chunk kernel launch failed: CUDA error {err}")
+    name = kernel_for(xs.shape[2], b.shape[2], chunk, _aligned(xs, b, c))
+    out = launch_kernel(name, xs, b, c, lda, chunk)
     with _count_lock:
         launches += 1
-    return y, state, cdecay
+        launches_by_kernel[name] += 1
+    return out
 
 
 @_ssd_intra_chunk_cuda.register_fake

@@ -10,9 +10,10 @@ Each kernel is held against its plain version (atol = rtol = 2e-5 in f32,
 2e-2 in bf16; grouped matmul at atol = TOL·d, rtol = TOL; SSD at 1e-3),
 under ``torch.func.vmap`` too, and the reduced models of the three ported
 families are run with the kernels and with the plain versions. Each
-attention and grouped-matmul case also checks that the kernel
-``kernel_for`` picks (TMA + wgmma for bf16 at the shapes TMA takes, the
-first design otherwise) is the one whose count rose.
+attention, grouped-matmul, RMSNorm and SSD case of the redesigned kernels
+also checks that the kernel ``kernel_for`` picks (TMA + wgmma, rows in
+registers, 3xTF32 tensor cores at the shapes they take; the first design
+otherwise) is the one whose count rose.
 """
 import pytest
 
@@ -113,6 +114,92 @@ def test_ssd(S, H, P, G, N, chunk):
                                                chunk=min(chunk, S))):
         torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
         torch.testing.assert_close(h, want_h, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape,xdt,wdt,residual", [
+    ((2, 17, 16, 128), torch.bfloat16, torch.float32, False),   # qk-norm: 16 lanes a row
+    ((3, 7, 4, 128), torch.bfloat16, torch.bfloat16, True),
+    ((65, 1024), torch.bfloat16, torch.float32, False),
+    ((65, 1024), torch.float32, torch.bfloat16, True),
+    ((3, 33, 2048), torch.bfloat16, torch.float32, True),
+    ((33, 2048), torch.float32, torch.float32, False),
+    ((9, 384), torch.bfloat16, torch.float32, False),            # a partly filled lane
+    ((16, 4096), torch.bfloat16, torch.bfloat16, False),         # 2 warps a row
+    ((6, 8192), torch.float32, torch.float32, True),             # 8 warps a row
+    ((8, 8192), torch.bfloat16, torch.float32, True),
+    ((11, 64), torch.float32, torch.float32, False),
+    ((33, 1000), torch.float32, torch.float32, False),           # the first design
+    ((5, 16), torch.float32, torch.float32, True)])
+def test_rmsnorm_kernel_choice(shape, xdt, wdt, residual):
+    g = torch.Generator("cuda").manual_seed(0)
+    x, w = _randn(g, *shape, dtype=xdt), _randn(g, shape[-1], dtype=wdt)
+    r = _randn(g, *shape, dtype=xdt) if residual else None
+    got = _one_launch_of(rms, rms.kernel_for(xdt, shape[-1]),
+                         lambda: rms.rmsnorm(x, w, residual=r))
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w, residual=r).float(),
+                               atol=TOL[xdt], rtol=TOL[xdt])
+
+
+@pytest.mark.parametrize("Bz,S,H,P,G,N,chunk", [
+    (2, 128, 2, 32, 1, 16, 32), (2, 256, 4, 64, 2, 32, 64), (2, 64, 2, 16, 1, 64, 64),
+    (2, 512, 8, 64, 1, 128, 128),      # mamba2-370m's (chunk, P, N), 8 heads a group
+    (2, 100, 4, 16, 1, 16, 32),        # ragged S
+    (1, 12, 4, 16, 2, 8, 16),          # chunk 12, zero-filled to the tiles
+    (2, 256, 8, 64, 1, 64, 64),        # more heads a group than a block takes
+    (1, 128, 2, 128, 1, 32, 64)])      # head dim 128: the first design
+def test_ssd_kernel_choice(Bz, S, H, P, G, N, chunk):
+    g = torch.Generator("cuda").manual_seed(0)
+    x = _randn(g, Bz, S, H, P)
+    dt = _randn(g, Bz, S, H).abs() * 0.1 + 0.01
+    A = -_randn(g, H).abs() - 0.1
+    Bm, Cm = _randn(g, Bz, S, G, N) * 0.5, _randn(g, Bz, S, G, N) * 0.5
+    h0, D = _randn(g, Bz, H, P, N) * 0.3, _randn(g, H)
+    y, h = _one_launch_of(ssd_scan, ssd_scan.kernel_for(P, N, min(chunk, S)),
+                          lambda: ssd_scan.ssd(x, dt, A, Bm, Cm, D=D, init_state=h0, chunk=chunk))
+    want_y, want_h = ref.ssd_ref(x, dt, A, Bm, Cm, D=D, init_state=h0)
+    torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(h, want_h, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("res", [False, True])
+def test_rmsnorm_misaligned_view_takes_the_first_design(xdt, res):
+    """A contiguous view at an odd storage offset is normalised by the first
+    design (the register-resident kernel needs 16-byte aligned tensors)."""
+    g = torch.Generator("cuda").manual_seed(2)
+    n, d = 9, 2048
+    x = _randn(g, n * d + 1, dtype=xdt)[1:].view(n, d)
+    r = _randn(g, n * d + 1, dtype=xdt)[1:].view(n, d) if res else None
+    w = _randn(g, d)
+    got = _one_launch_of(rms, rms.KERNELS[1], lambda: rms.rmsnorm(x, w, residual=r))
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w, residual=r).float(),
+                               atol=TOL[xdt], rtol=TOL[xdt])
+
+
+def test_ssd_misaligned_view_takes_the_first_design():
+    g = torch.Generator("cuda").manual_seed(2)
+    xs = _randn(g, 8 * 256 * 64 + 1)[1:].view(8, 256, 64)
+    b, c = _randn(g, 2, 256, 128) * 0.5, _randn(g, 2, 256, 128) * 0.5
+    lda = -_randn(g, 8, 256).abs() * 0.05
+    got = _one_launch_of(ssd_scan, ssd_scan.KERNELS[1],
+                         lambda: ssd_scan.ssd_intra_chunk(xs, b, c, lda, 128))
+    for o, want in zip(got, ref.ssd_intra_chunk_ref(xs, b, c, lda, 128)):
+        torch.testing.assert_close(o, want, atol=1e-4, rtol=1e-4)
+
+
+def test_new_kernels_vmap_rules_launch_once():
+    g = torch.Generator("cuda").manual_seed(3)
+    x, w = _randn(g, 4, 5, 128, dtype=torch.bfloat16), _randn(g, 128)
+    got = _one_launch_of(rms, rms.KERNELS[0],
+                         lambda: torch.func.vmap(lambda a: rms.rmsnorm(a, w), in_dims=1)(x))
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).transpose(0, 1).float(),
+                               atol=2e-2, rtol=2e-2)
+    xs, b, lda = _randn(g, 3, 4, 64, 16), _randn(g, 2, 64, 8), -_randn(g, 3, 4, 64).abs()
+    got = _one_launch_of(ssd_scan, ssd_scan.KERNELS[0], lambda: torch.func.vmap(
+        lambda a, l_: ssd_scan.ssd_intra_chunk(a, b, b, l_, 32))(xs, lda))
+    for i in range(3):
+        for o, want in zip(got, ref.ssd_intra_chunk_ref(xs[i], b, b, lda[i], 32)):
+            torch.testing.assert_close(o[i], want, atol=1e-4, rtol=1e-4)
 
 
 def test_vmap_rules_launch_once_and_agree():

@@ -386,3 +386,178 @@ class TestKernelChoice:
         assert fa.launches == gmm.launches == 0
         assert set(fa.launches_by_kernel) == set(fa.KERNELS)
         assert not any(fa.launches_by_kernel.values()) and not any(gmm.launches_by_kernel.values())
+
+
+SM90_RMS, FIRST_RMS = rms.KERNELS
+SM90_SSD, FIRST_SSD = ssd_scan.KERNELS
+
+
+class TestNormAndSSDKernelChoice:
+    """The RMSNorm and SSD wrappers pick the register-resident and the
+    tensor-core kernel by dtype, shape and 16-byte alignment, for every
+    served shape."""
+
+    @pytest.mark.parametrize("dtype,d,kernel", [
+        (torch.bfloat16, 128, SM90_RMS), (torch.bfloat16, 1024, SM90_RMS),
+        (torch.bfloat16, 2048, SM90_RMS), (torch.bfloat16, 384, SM90_RMS),
+        (torch.bfloat16, 8192, SM90_RMS), (torch.float32, 64, SM90_RMS),
+        (torch.float32, 128, SM90_RMS), (torch.float32, 2048, SM90_RMS),
+        (torch.float32, 8192, SM90_RMS),
+        (torch.float32, 1000, FIRST_RMS), (torch.float32, 16, FIRST_RMS),
+        (torch.bfloat16, 1000, FIRST_RMS), (torch.bfloat16, 64, FIRST_RMS),
+        (torch.bfloat16, 192, FIRST_RMS), (torch.bfloat16, 16384, FIRST_RMS)])
+    def test_rmsnorm(self, dtype, d, kernel):
+        assert rms.kernel_for(dtype, d) == kernel
+
+    @pytest.mark.parametrize("P,N,chunk,kernel", [
+        (64, 128, 128, SM90_SSD),                                    # mamba2-370m
+        (32, 16, 32, SM90_SSD), (64, 32, 64, SM90_SSD), (16, 64, 64, SM90_SSD),   # the reference's
+        (16, 8, 32, SM90_SSD), (16, 8, 12, SM90_SSD), (32, 96, 64, SM90_SSD),
+        (128, 32, 64, FIRST_SSD), (30, 16, 32, FIRST_SSD), (16, 10, 32, FIRST_SSD),
+        (64, 256, 128, FIRST_SSD), (64, 128, 256, FIRST_SSD)])
+    def test_ssd(self, P, N, chunk, kernel):
+        assert ssd_scan.kernel_for(P, N, chunk) == kernel
+
+    @pytest.mark.parametrize("choose", [
+        lambda aligned: rms.kernel_for(torch.bfloat16, 2048, aligned) == FIRST_RMS,
+        lambda aligned: rms.kernel_for(torch.float32, 128, aligned) == FIRST_RMS,
+        lambda aligned: ssd_scan.kernel_for(64, 128, 128, aligned) == FIRST_SSD],
+        ids=["rmsnorm-bf16", "rmsnorm-f32", "ssd"])
+    def test_misaligned_inputs_take_the_first_design(self, choose):
+        """The new kernels need 16-byte aligned tensors; an offset view goes
+        to the first design before any launch, never after a failure."""
+        assert choose(aligned=False)
+
+    @pytest.mark.parametrize("mod", [rms, ssd_scan])
+    @pytest.mark.parametrize("offset,aligned", [(0, True), (1, False), (2, False), (4, True)])
+    def test_alignment_of_an_offset_view(self, mod, offset, aligned):
+        buf = torch.zeros(64)   # f32: 4 elements a 16-byte step
+        assert mod._aligned(buf[offset:], buf) == aligned
+
+    @pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "mamba2-370m"])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_model_shapes_take_the_new_kernels(self, arch, dtype):
+        """In the served dtype (bf16) and in the f32 of the logits checks."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        widths = [cfg.d_model]
+        if cfg.qk_norm:
+            widths.append(cfg.head_dim)
+        if cfg.family == "ssm":   # the gated norm on d_inner; SSD's (chunk, P, N)
+            widths.append(cfg.ssm_inner)
+            assert ssd_scan.kernel_for(cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk) == SM90_SSD
+        for d in widths:
+            assert rms.kernel_for(dtype, d) == SM90_RMS
+
+    @pytest.mark.parametrize("chunk", [1, 12, 32, 64, 100, 128])
+    def test_ssd_shared_memory_fits_where_chosen(self, chunk):
+        """The tensor-core kernel's shared memory (the launcher's own sum)
+        fits the H100's 232,448 bytes at every shape sent to it."""
+        chosen = 0
+        for P in range(4, 129, 4):
+            for N in range(4, 257, 4):
+                if ssd_scan.kernel_for(P, N, chunk) == SM90_SSD:
+                    assert ssd_scan.smem_bytes(chunk, P, N, SM90_SSD) <= 232_448
+                    chosen += 1
+        assert chosen > 0
+        assert ssd_scan.smem_bytes(128, 64, 128, SM90_SSD) == 232_448   # the path's: all of it
+
+    def test_reset_launches_zeroes_the_new_counters(self):
+        rms.launches_by_kernel[SM90_RMS] += 3
+        ssd_scan.launches_by_kernel[SM90_SSD] += 2
+        ssd_scan.launches_by_kernel[FIRST_SSD] += 1
+        rms.reset_launches()
+        ssd_scan.reset_launches()
+        assert rms.launches == ssd_scan.launches == 0
+        assert set(rms.launches_by_kernel) == set(rms.KERNELS)
+        assert set(ssd_scan.launches_by_kernel) == set(ssd_scan.KERNELS)
+        assert not any(rms.launches_by_kernel.values())
+        assert not any(ssd_scan.launches_by_kernel.values())
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped
+    bits to the magnitude, then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as the tensor-core SSD kernel forms it: each operand split into
+    hi = tf32(a) and lo = tf32(a - hi), lo·hi' + hi·lo' + hi·hi' summed in
+    f32 (products of TF32 values are exact in f32). ``passes=1`` is
+    single-pass TF32 (hi·hi' alone)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+class TestSSD3xTF32:
+    """The numeric design of the tensor-core SSD kernel, emulated on the
+    CPU at the mamba2-370m prefill shape (4 x 32 heads, 1 group, S 512,
+    chunk 128, P 64, N 128): the three products of
+    ``ssd_intra_chunk_ref`` through the 3xTF32 split come within 1e-5
+    relative L2 of an f64 computation; single-pass TF32 does not."""
+
+    @staticmethod
+    def _products(passes: int):
+        """(y, state) through the split with ``passes``, and in f64."""
+        rng = np.random.default_rng(21)
+        Bz, H, G, S, P, N, Q = 4, 32, 1, 512, 64, 128, 128
+        x = rng.standard_normal((Bz * H, S, P))
+        dt = np.abs(rng.standard_normal((Bz * H, S))) * 0.1 + 0.01
+        A = -np.abs(rng.standard_normal(H)) - 0.1
+        xs = torch.from_numpy((x * dt[..., None]).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal((Bz * G, S, N)) * 0.5).astype(np.float32))
+        c = torch.from_numpy((rng.standard_normal((Bz * G, S, N)) * 0.5).astype(np.float32))
+        lda = torch.from_numpy((dt * np.tile(A, Bz)[:, None]).astype(np.float32))
+        BH, BG, nc, rep = Bz * H, Bz * G, S // Q, H // G
+        lower = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+
+        def run(mm, dtype):
+            # the kernel's steps: C·Bᵀ once per group, then per head the
+            # decay applied to it (selected on and below the diagonal), y
+            # and the end-state
+            cums = torch.cumsum(lda.to(dtype).reshape(BH, nc, Q), dim=2)
+            b_c, c_c = (t.to(dtype).reshape(BG, nc, Q, N) for t in (b, c))
+            cb = mm(c_c, b_c.transpose(-1, -2)).repeat_interleave(rep, dim=0)
+            scores = torch.where(
+                lower, cb * torch.exp(cums[..., :, None] - cums[..., None, :]), 0.0)
+            xs_c = xs.to(dtype).reshape(BH, nc, Q, P)
+            y = mm(scores, xs_c).reshape(BH, S, P)
+            dte = torch.exp(cums[..., -1:] - cums)
+            bd = b_c.repeat_interleave(rep, dim=0) * dte[..., None]
+            return y, mm(bd.transpose(-1, -2), xs_c)
+
+        got = run(lambda a, b_: _mm_3xtf32(a, b_, passes), torch.float32)
+        want = run(torch.matmul, torch.float64)
+        # the f64 steps are those of the plain version
+        for w, r in zip(want, ssd_scan.ssd_intra_chunk(xs, b, c, lda, Q)):
+            assert TestSSD3xTF32._rel_l2(r, w) <= 1e-6
+        return got, want
+
+    @staticmethod
+    def _rel_l2(got, want):
+        return ((got.double() - want).norm() / want.norm()).item()
+
+    def test_tf32_rounding_is_round_to_nearest(self):
+        one = torch.tensor([1.0, -1.0])
+        ulp = 2.0 ** -10
+        for frac, up in ((0.49, False), (0.5, True), (0.51, True)):   # ties away from zero
+            got = _tf32(one * (1 + frac * ulp))
+            torch.testing.assert_close(got, one * (1 + ulp if up else 1.0), atol=0, rtol=0)
+        assert (_tf32(torch.randn(1000)).view(torch.int32) & 0x1FFF).eq(0).all()
+
+    def test_three_products_within_1e5_of_f64(self):
+        (y, state), (want_y, want_state) = self._products(passes=3)
+        assert self._rel_l2(y, want_y) <= 1e-5
+        assert self._rel_l2(state, want_state) <= 1e-5
+
+    def test_single_pass_tf32_is_not_enough(self):
+        (y, state), (want_y, want_state) = self._products(passes=1)
+        assert self._rel_l2(y, want_y) > 1e-4
+        assert self._rel_l2(state, want_state) > 1e-4

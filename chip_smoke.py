@@ -75,16 +75,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. Profile, for each path: one prefill and one more coalesced decode
    round under ``torch.profiler``, printing the card's busy and idle
    shares and the kernels that take the device time.
+5. Taskgraph: the paper's record -> fuse -> lower -> replay path on the
+   paper's workloads (``repro_torch.workloads``), each at a coarse and a
+   fine grain, at sizes where the card does real work: Cholesky n 16,384
+   (nb 16, 32), Heat 16,384^2 x 2 iterations (nb 16, 64), N-body 16,384
+   particles (nb 16), AXPY and DOTP n 2^28 (nb 16, 1024), RMSNorm blocks
+   65,536 x 2048 bf16 at depth 2 (nb 16, 256) and causal attention blocks,
+   64 x 2048 x 16 heads of 128 in bf16 (nb 16) and the reference's 16 x
+   128 x 4 heads of 64 in f32 (nb 4). Each run records through
+   ``@taskgraph``, replays through ``ReplayExecutor`` (one CUDA graph,
+   captured at its first call), replays fused and uncaptured
+   (``lower_tdg(jit=False)``), and runs ``EagerExecutor(n_workers=4)``; the
+   workload's ``verify`` holds the captured replay, and the three must
+   agree per output within a stated share of its largest magnitude. No
+   class may fall back to the unrolled form; the RMSNorm and attention
+   classes are fused by ``vmap``, and their kernels (``rmsnorm_sm90``,
+   ``flash_attention_sm90``, the f32 first-design ``flash_attention``) must
+   launch inside the captured graph: their counters rise by twice one
+   uncaptured replay's launches at the first call (warm-up and capture),
+   stay still over the replays, and a profiler trace of three replays shows
+   the kernel's name. One line per run gives tasks, waves, fused classes,
+   record, eager (median of 5), captured and uncaptured replay (median of
+   5) times, and eager's ``ExecStats``. Launch counts are set to 0 just
+   before the phase and read just after.
 
-The last lines are one ``{"kernels": [...]}`` JSON object and then
-``{"ok": true, "device": {...}}``. Needs a CUDA card and the repository
-beside this file.
+The last lines are one ``{"kernels": [...]}`` JSON object, one
+``{"taskgraph": [...]}`` object and then ``{"ok": true, "device": {...}}``.
+Needs a CUDA card and the repository beside this file.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -110,6 +134,9 @@ SSD_TOL = 1e-3
 SSD_REL = 1e-5
 
 TENANTS, BATCH, PROMPT, DECODE_STEPS = 4, 4, 512, 8
+TG_TOKENS = 65536                   # the taskgraph phase's rmsnorm_blocks rows (d 2048)
+TG_BF16_ATTN = (64, 2048, 16, 128)  # its bf16 attention_blocks: seqs, seq, heads, hd
+TG_F32_ATTN = (16, 128, 128, 4, 4, 64)   # its f32 one: B, Sq, Sk, Hq, Hkv, D
 FIRST_DESIGNS = ("flash_attention", "grouped_matmul", "rmsnorm",
                  "ssd_chunk")   # kept for the dtypes and shapes the new kernels do not take
 MOE_LAYERS = 16                     # of 48: f32 params of all 48 take 122 GB
@@ -251,6 +278,12 @@ def check_rmsnorm(rms, ref, gen) -> dict:
         ((1, 2048), torch.bfloat16, torch.float32, True),
         ((40_001, 128), torch.bfloat16, torch.float32, False),
         ((11, 64), torch.float32, torch.float32, True),
+        # the taskgraph phase's rmsnorm_blocks: a fused wave (65,536 rows, the
+        # vmap rule folding 16 or 256 blocks into one launch) and one task of
+        # each grain in eager
+        ((TG_TOKENS, 2048), torch.bfloat16, torch.float32, False),
+        ((TG_TOKENS // 16, 2048), torch.bfloat16, torch.float32, False),
+        ((TG_TOKENS // 256, 2048), torch.bfloat16, torch.float32, False),
     ]
     worst, by_kernel = 0.0, {}
     for shape, xdt, wdt, res in cases:
@@ -275,7 +308,8 @@ def check_rmsnorm(rms, ref, gen) -> dict:
     for label, (n, d) in (("prefill", (TENANTS * PROMPT, 2048)),
                           ("decode", (TENANTS * BATCH, 2048)),
                           ("qk-norm", (TENANTS * PROMPT * 32, 128)),
-                          ("mamba2 block", (TENANTS * PROMPT, 1024))):
+                          ("mamba2 block", (TENANTS * PROMPT, 1024)),
+                          ("taskgraph fused wave", (TG_TOKENS, 2048))):
         x = randn(n, d, dtype=torch.bfloat16, gen=gen)
         w = randn(d, dtype=torch.float32, gen=gen)
         kernel_ms = time_ms(lambda: rms.rmsnorm(x, w), flush=flush)
@@ -323,6 +357,12 @@ def check_attention(fa, ref, gen) -> dict:
         (2, 200, 200, 4, 2, 128, torch.bfloat16, {}),
         (2, 100, 150, 8, 2, 64, torch.bfloat16, {"q_offset": 37}),
         (1, 256, 256, 4, 2, 128, torch.bfloat16, {"chunk": 64}),
+        # the taskgraph phase's attention_blocks, one task (4 sequences): bf16
+        # 16/16 heads of 128 at 2048; f32 4/4 heads of 64 at 128, fused (16
+        # sequences) and one task
+        (4, 2048, 2048, 16, 16, 128, torch.bfloat16, {}),
+        (*TG_F32_ATTN, torch.float32, {}),
+        (TG_F32_ATTN[0] // 4, *TG_F32_ATTN[1:], torch.float32, {}),
     ]
     worst, by_kernel = 0.0, {}
     for B, Sq, Sk, Hq, Hkv, D, dt, kw in cases:
@@ -365,13 +405,53 @@ def check_attention(fa, ref, gen) -> dict:
         shapes[label] = {"shape": [B, S, Hq, Hkv, D], "ms": kernel_ms, "first_design_ms": first_ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                          "bound_by": b_by}
+    # the taskgraph phase's bf16 fused wave: 64 sequences in one launch (the
+    # plain version would hold 16 GiB of scores: not timed there)
+    B, S, H, D = TG_BF16_ATTN
+    q, k, v = (randn(B, S, H, D, dtype=torch.bfloat16, gen=gen) for _ in range(3))
+    kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush=flush)
+    lib_ms = library_ms("F.scaled_dot_product_attention",
+                        lambda: F.scaled_dot_product_attention(
+                            *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True), flush)
+    flops = 4 * D * B * H * S * (S + 1) // 2
+    b_ms, b_by = bound(4 * q.numel() * q.element_size(), flops, torch.bfloat16)
+    log(f"  taskgraph fused wave {B}x{S}, {H}/{H} heads: kernel {kernel_ms:.4f} ms "
+        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {b_ms / kernel_ms:.1%} of the {b_by} bound "
+        f"{b_ms:.4f} ms); SDPA {lib_ms} ms")
+    shapes["taskgraph fused wave"] = {"shape": [B, S, H, H, D], "ms": kernel_ms,
+                                      "plain_ms": None, "library_ms": lib_ms,
+                                      "bound_ms": b_ms, "bound_by": b_by}
+    del q, k, v
     dense = shapes["dense prefill"]
     e = entry("flash_attention", "flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention.py:102", worst, TOL[torch.bfloat16],
               dense["ms"], dense["plain_ms"], dense["library_ms"], dense["bound_ms"],
               dense["bound_by"], dense["shape"], "bfloat16")
     e["first_design_ms"], e["by_shape"] = dense["first_design_ms"], shapes
-    return e
+
+    # the first design on its own path: the taskgraph phase's f32 attention,
+    # a fused wave of 16 sequences (the reference's attention_blocks defaults)
+    B, S, _, Hq, Hkv, D = TG_F32_ATTN
+    q = randn(B, S, Hq, D, dtype=torch.float32, gen=gen)
+    k, v = (randn(B, S, Hkv, D, dtype=torch.float32, gen=gen) for _ in range(2))
+    first = fa.KERNELS[1]
+    got, err = check_case("attention taskgraph f32 fused wave", fa, first,
+                          lambda: fa.flash_attention(q, k, v), ref.attention_ref(q, k, v),
+                          TOL[torch.float32])
+    kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush=flush)
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), flush=flush)
+    lib_ms = library_ms("F.scaled_dot_product_attention",
+                        lambda: F.scaled_dot_product_attention(
+                            *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True), flush)
+    flops = 4 * D * B * Hq * S * (S + 1) // 2
+    b_ms, b_by = bound(4 * q.numel() * q.element_size(), flops, torch.float32)
+    log(f"flash_attention first design (f32, taskgraph fused wave {B}x{S}, {Hq}/{Hkv} "
+        f"heads of {D}): {kernel_ms:.4f} ms ({b_ms / kernel_ms:.1%} of the {b_by} bound "
+        f"{b_ms:.4f} ms); plain {plain_ms:.4f} ms; SDPA {lib_ms} ms; max abs err {err:.3g}")
+    e_first = entry("flash_attention (first design)", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:102", err, TOL[torch.float32],
+                    kernel_ms, plain_ms, lib_ms, b_ms, b_by, [B, S, Hq, Hkv, D], "float32")
+    return e, e_first
 
 
 def check_grouped_matmul(gmm, ref, gen) -> dict:
@@ -949,6 +1029,194 @@ def run_mamba(kernels, registry) -> dict:
     return run
 
 
+# ---------------------------------------------------------------- taskgraph
+
+# (workload, sizes, grains, agreement): the paper's workloads at sizes the
+# card does real work at. Captured replay, uncaptured replay and eager must
+# agree within ``agreement`` x the largest magnitude among the outputs.
+TASKGRAPH_RUNS = (
+    ("cholesky", {"n": 16384}, (16, 32), 1e-5),
+    ("heat", {"n": 16384, "iters": 2}, (16, 64), 1e-6),
+    ("nbody", {"n_particles": 16384}, (16,), 1e-5),
+    ("axpy", {"n": 1 << 28}, (16, 1024), 1e-6),
+    ("dotp", {"n": 1 << 28}, (16, 1024), 1e-4),
+    ("rmsnorm", {"n_tokens": 65536, "d": 2048, "depth": 2, "dtype": torch.bfloat16},
+     (16, 256), TOL[torch.bfloat16]),
+    ("attention", {"n_seqs": 64, "seq": 2048, "heads": 16, "head_dim": 128,
+                   "dtype": torch.bfloat16}, (16,), TOL[torch.bfloat16]),
+    ("attention", {"n_seqs": 16, "seq": 128, "heads": 4, "head_dim": 64}, (4,),
+     TOL[torch.float32]),
+)
+# kernels each kernel workload must launch inside its captured graph, and
+# the name prefix of each in a profiler trace
+GRAPH_KERNELS = {("rmsnorm", torch.bfloat16): ("rmsnorm_sm90", "rmsnorm_sm90_kernel"),
+                 ("attention", torch.bfloat16): ("flash_attention_sm90", "fa_sm90_kernel"),
+                 ("attention", torch.float32): ("flash_attention", "fa_fwd_kernel")}
+REPS = 5
+
+
+def _median_ms(fn, reps: int = REPS):
+    """Median host time of ``fn()`` over ``reps`` calls, each ending in a
+    synchronize, and the last call's result."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _agree(label: str, got: dict, want: dict, rel: float) -> float:
+    """The largest difference over all outputs, as a share of the largest
+    magnitude among them (a reduction's partial near 0 is held to the scale
+    of the sums, not to itself), must stay within ``rel``; the share."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: output slots differ")
+    diff = scale = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{label} {k}: shape {tuple(g.shape)} / {tuple(w.shape)} "
+                                 f"or not finite")
+        diff = max(diff, (g.float() - w.float()).abs().max().item())
+        scale = max(scale, w.float().abs().max().item())
+    worst = diff / max(scale, 1e-30)
+    if worst > rel:
+        raise AssertionError(f"{label}: differs by {worst:.3g} of the largest magnitude "
+                             f"(limit {rel})")
+    return worst
+
+
+def _graph_kernel_names(fn) -> set[str]:
+    """Names of the device kernels a profiler trace of ``fn()`` records.
+
+    A trace that recorded no device activity at all (after many profiler
+    sessions in one process, the profiler has returned empty traces of
+    sub-millisecond runs) is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    return names
+
+
+def taskgraph_run(name: str, sizes: dict, nb: int, rel: float, kernels: dict,
+                  card: str) -> dict:
+    """One workload at one grain: record, captured replay (ReplayExecutor),
+    uncaptured fused replay (lower_tdg(jit=False)), EagerExecutor(4); the
+    workload's verify on the captured replay; the three must agree."""
+    from repro_torch import workloads as W
+    from repro_torch.core import EagerExecutor, ReplayExecutor, buffers_signature, lower_tdg
+
+    dtype = sizes.get("dtype", torch.float32)
+    label = f"{name}[{nb}] {str(dtype).replace('torch.', '')}"
+    tdg, bufs, verify = W.WORKLOADS[name](**sizes, nb=nb, device="cuda")
+    region = W.as_region(tdg, name=label)
+    rec_ms, rec_out = _median_ms(lambda: region(**bufs), reps=1)
+
+    replay = ReplayExecutor(region.tdg)
+    keying_ms, _ = _median_ms(lambda: buffers_signature(bufs))   # host: the replay's cache key
+    before = read_counts(kernels)
+    capture_ms, _ = _median_ms(lambda: replay.run(bufs), reps=1)   # warm-up + capture
+    at_capture = read_counts(kernels)
+    cap_ms, cap_out = _median_ms(lambda: replay.run(bufs))
+    after_replays = read_counts(kernels)
+
+    uncaptured = lower_tdg(region.tdg, jit=False)
+    unc_first_ms, _ = _median_ms(lambda: uncaptured(dict(bufs)), reps=1)
+    per_replay = read_counts(kernels)
+    unc_ms, unc_out = _median_ms(lambda: uncaptured(dict(bufs)))
+    per_replay = {k: (v - per_replay[k]) // REPS for k, v in read_counts(kernels).items()}
+    plan = uncaptured.last_plan.summary()
+
+    eager = EagerExecutor(region.tdg, n_workers=4)
+    eager_out = eager.run(dict(bufs))
+    stats = dataclasses.replace(eager.stats)
+    eager_ms, eager_out = _median_ms(lambda: eager.run(dict(bufs)))
+
+    verify(cap_out)
+    worst = max(_agree(f"{label} captured vs uncaptured", cap_out, unc_out, rel),
+                _agree(f"{label} captured vs eager", cap_out, eager_out, rel),
+                _agree(f"{label} record vs eager", rec_out, eager_out, rel))
+    in_capture = {k: at_capture[k] - before[k] for k in before}
+    in_replays = {k: after_replays[k] - at_capture[k] for k in before}
+    if any(in_replays.values()):
+        raise AssertionError(f"{label}: a wrapper counted launches during graph replays "
+                             f"({in_replays})")
+    # warm-up and capture each run the lowered region once
+    if in_capture != {k: 2 * v for k, v in per_replay.items()}:
+        raise AssertionError(f"{label}: launches during warm-up + capture {in_capture}, "
+                             f"one uncaptured replay {per_replay}")
+    captures = [fn.graph_replay.captures for fn in replay._cache.values()]
+    if captures != [1]:
+        raise AssertionError(f"{label}: {captures} captures, want one graph for one signature")
+    graph_kernel = GRAPH_KERNELS.get((name, dtype))
+    traced = None
+    fallbacks = [c for c in plan["decisions"] if "fallback" in c["reason"]]
+    if fallbacks:
+        raise AssertionError(f"{label}: classes fell back to the unrolled form: {fallbacks}")
+    if graph_kernel:
+        kernel, symbol = graph_kernel
+        for c in plan["decisions"]:
+            if c["fused"] is not True or c["batcher"] != "vmap":
+                raise AssertionError(f"{label}: class {c} is not fused by vmap")
+        if not in_capture[kernel] > 0:
+            raise AssertionError(f"{label}: {kernel} did not launch during the capture")
+        names = _graph_kernel_names(lambda: [replay.run(bufs) for _ in range(3)])
+        traced = sorted(n for n in names if symbol in n)
+        if not traced:
+            raise AssertionError(f"{label}: a trace of three replays shows no {symbol} "
+                                 f"among {len(names)} device kernels: {sorted(names)[:12]}")
+    stats_d = {k: v for k, v in stats.as_dict().items() if not k.endswith("seconds")}
+    log(f"taskgraph {label}: {tdg.num_tasks} tasks, {plan['waves']} waves, "
+        f"{plan['fused_classes']} fused classes ({plan['batchers']}); record "
+        f"{rec_ms:.1f} ms, eager {eager_ms:.2f} ms (median of {REPS}), captured replay "
+        f"{cap_ms:.2f} ms (capture {capture_ms:.1f} ms; its buffer signature alone "
+        f"{keying_ms:.2f} ms of host time), uncaptured replay {unc_ms:.2f} ms "
+        f"(first {unc_first_ms:.1f} ms); eager / captured {eager_ms / cap_ms:.2f}x, "
+        f"uncaptured / captured {unc_ms / cap_ms:.2f}x; eager {stats_d}; agree within "
+        f"{worst:.3g} (limit {rel}); launches in warm-up + capture "
+        f"{ {k: v for k, v in in_capture.items() if v} }, in {REPS} replays 0"
+        + (f"; traced {traced}" if traced else "") + f" ({card})")
+    return {"workload": label, "tasks": tdg.num_tasks, "waves": plan["waves"],
+            "fused_classes": plan["fused_classes"], "record_ms": rec_ms,
+            "eager_ms": eager_ms, "captured_ms": cap_ms, "capture_ms": capture_ms,
+            "signature_ms": keying_ms,
+            "uncaptured_ms": unc_ms, "eager_stats": stats_d, "agreement": worst,
+            "launches_in_capture": in_capture, "traced": traced}
+
+
+def run_taskgraph(kernels: dict, card: str, runs=TASKGRAPH_RUNS) -> list:
+    """The taskgraph phase: every workload at each grain, one at a time, its
+    buffers and captured graphs freed before the next."""
+    from repro_torch.core import lower, reset_registry
+
+    out = []
+    for name, sizes, grains, rel in runs:
+        for nb in grains:
+            torch.cuda.reset_peak_memory_stats()
+            out.append(taskgraph_run(name, sizes, nb, rel, kernels, card))
+            lower.clear_intern_cache()
+            reset_registry()
+            gc.collect()              # graphs and buffers held in cycles
+            torch.cuda.empty_cache()
+            log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"after freeing: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+                f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+            if torch.cuda.memory_reserved() > 8 << 30:
+                raise AssertionError("the taskgraph phase left more than 8 GiB reserved "
+                                     "after freeing a run")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -987,7 +1255,7 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(1234)
     t0 = time.perf_counter()
-    entries = [check_rmsnorm(rms, ref, gen), check_attention(fa, ref, gen),
+    entries = [check_rmsnorm(rms, ref, gen), *check_attention(fa, ref, gen),
                check_grouped_matmul(gmm, ref, gen), check_ssd(ssd, ref, gen)]
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
 
@@ -1002,6 +1270,18 @@ def main() -> int:
         del run
         log(f"path {label}: {time.perf_counter() - t0:.1f} s, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the taskgraph path: counts zeroed just before, read just after
+    for mod in kernels.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    taskgraph = run_taskgraph(kernels, card)
+    runs["taskgraph"] = read_counts(kernels)
+    # ---- end of the taskgraph path
+    log(f"path taskgraph: {len(taskgraph)} runs in {time.perf_counter() - t0:.1f} s; "
+        f"launches {runs['taskgraph']}")
 
     for e in entries:
         src = Path(e["source"]).stem
@@ -1011,6 +1291,7 @@ def main() -> int:
             raise AssertionError(f"{e['name']} never launched on the main path")
     log(f"total {time.perf_counter() - t_start:.1f} s after the device check")
     log(json.dumps({"kernels": entries, "card": card}))
+    log(json.dumps({"taskgraph": taskgraph, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

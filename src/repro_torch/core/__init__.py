@@ -1,9 +1,37 @@
-from .lower import clear_intern_cache, intern_stats, lower_tdg, tdg_as_function
-from .schedule import topo_order, topo_waves, validate_execution_order
-from .tdg import (TDG, DependencyTable, Edge, EdgeKind, Task, buffers_signature,
-                  structure_signature)
+"""Core Taskgraph framework: TDG, record-and-replay, schedules, executors,
+wave-fused lowering, cost-model-driven batcher selection, structural
+interning and CUDA-graph replay (port of ``repro.core``; serialization, AOT
+compilation and the replay mesh wait, see ROADMAP.md)."""
+from .costmodel import (BatcherDecision, BucketTuner, ClassCost, CostModel,
+                        adaptive_enabled, default_model, fit_boundaries,
+                        plan_key, pow2_boundaries, resolve_batcher)
+from .executor import EagerExecutor, ExecStats, ReplayExecutor
+from .fuse import (FusionPlan, WaveClass, classify_wave, fused_tdg_as_function,
+                   plan as fusion_plan)
+from .lower import (GraphCaptureError, GraphReplay, clear_intern_cache,
+                    fuse_enabled, intern_stats, lower_tdg, tdg_as_function)
+from .record import (GraphBuilder, TaskGraphRegion, registry, reset_registry,
+                     taskgraph)
+from .schedule import (ListSchedule, critical_path, list_schedule,
+                       one_f_one_b_order, parallelism, pipeline_tdg,
+                       round_robin_assign, topo_order, topo_waves,
+                       validate_execution_order, wave_placement, work)
+from .tdg import (TDG, DependencyTable, DepKind, Edge, EdgeKind, Task,
+                  buffers_signature, structure_signature)
 
-__all__ = ["TDG", "DependencyTable", "Edge", "EdgeKind", "Task",
-           "buffers_signature", "clear_intern_cache", "intern_stats",
-           "lower_tdg", "structure_signature", "tdg_as_function",
-           "topo_order", "topo_waves", "validate_execution_order"]
+__all__ = [
+    "TDG", "Task", "Edge", "DepKind", "EdgeKind", "DependencyTable",
+    "buffers_signature", "structure_signature",
+    "CostModel", "ClassCost", "BatcherDecision", "BucketTuner",
+    "adaptive_enabled", "resolve_batcher", "plan_key", "default_model",
+    "fit_boundaries", "pow2_boundaries",
+    "FusionPlan", "WaveClass", "classify_wave", "fused_tdg_as_function",
+    "fusion_plan",
+    "topo_order", "topo_waves", "round_robin_assign", "wave_placement",
+    "critical_path", "work", "parallelism", "list_schedule", "ListSchedule",
+    "pipeline_tdg", "one_f_one_b_order", "validate_execution_order",
+    "tdg_as_function", "lower_tdg", "intern_stats", "clear_intern_cache",
+    "fuse_enabled", "GraphReplay", "GraphCaptureError",
+    "EagerExecutor", "ReplayExecutor", "ExecStats",
+    "taskgraph", "TaskGraphRegion", "GraphBuilder", "registry", "reset_registry",
+]

@@ -11,11 +11,18 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Iterable, Mapping, Sequence
 
 import torch
 from torch import nn
 from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+
+class DepKind(enum.Enum):
+    IN = "in"
+    OUT = "out"
+    INOUT = "inout"
 
 
 class EdgeKind(enum.Enum):
@@ -169,6 +176,48 @@ class TDG:
 
     def __repr__(self) -> str:  # pragma: no cover
         return self.summary()
+
+
+def chain_series(tdg: TDG, fns: Iterable[Callable], slot: str = "x") -> None:
+    """Helper: a linear chain of tasks over one slot (paper Listing 1 column)."""
+    for i, fn in enumerate(fns):
+        tdg.add_task(fn, inouts=[slot], name=f"{slot}.{i}")
+
+
+def abstract_leaf(v: Any):
+    """One value leaf -> a meta tensor of its shape and dtype (no data touched).
+
+    The counterpart of ``jax.ShapeDtypeStruct``, shared by ``record``
+    (``build_static``), ``fuse`` (``plan``) and the cost model. A meta tensor
+    passes through; a module stays itself (its parameters are not a value
+    the graph changes); anything else becomes a tensor first.
+    """
+    if isinstance(v, torch.Tensor):
+        return v if v.is_meta else torch.empty_like(v, device="meta")
+    if isinstance(v, nn.Module):
+        return v
+    return torch.empty_like(torch.as_tensor(v), device="meta")
+
+
+class _OnMeta(TorchDispatchMode):
+    """Moves every tensor an op gets to the meta device first, so a payload
+    that closes over a real tensor (a constant) evaluates on meta inputs."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        args, kwargs = pytree.tree_map_only(
+            torch.Tensor, lambda t: t if t.is_meta else t.to("meta"),
+            (args, kwargs or {}))
+        return func(*args, **kwargs)
+
+
+def abstract_eval(fn: Callable[..., Any], *args: Any) -> Any:
+    """Evaluate ``fn`` on abstract (meta) arguments: the port's
+    ``jax.eval_shape``. Shapes and dtypes come out; no data is touched and no
+    kernel launches (a CUDA kernel's wrapper takes its plain version for
+    tensors off the card, and its custom op has a fake implementation)."""
+    args = pytree.tree_map(abstract_leaf, args)
+    with torch.no_grad(), _OnMeta():
+        return fn(*args)
 
 
 def structure_signature(tdg: TDG, outputs: Sequence[str] | None = None

@@ -14,14 +14,29 @@ from . import ref as _ref
 from . import registry
 from . import rmsnorm as _rms
 from . import ssd_scan as _ssd
+from . import xla_attention as _xla
 
 
 def _attention_ref(q, k, v, *, causal=True, window=None, chunk=None,
                    scale=None, q_offset=0, q_chunk=2048):
-    """Plain attention (``q_chunk`` bounds the reference's XLA path; unused)."""
-    del q_chunk
-    return _ref.attention_ref(q, k, v, causal=causal, window=window,
-                              chunk=chunk, scale=scale, q_offset=q_offset)
+    """Plain attention with bounded live scores, routed as the reference's.
+
+    The banded forms take self-attention from position 0 only, and the
+    reference's routing drops a window or chunk mask that comes without
+    causality and any ``q_offset`` that comes with one; those calls take the
+    oracle, ``ref.attention_ref``, which applies every mask and offset.
+    """
+    if (window or chunk) and (not causal or q_offset or q.shape[1] != k.shape[1]):
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  chunk=chunk, scale=scale, q_offset=q_offset)
+    if not causal:
+        return _xla.sdpa_cross(q, k, v, scale=scale)
+    if window:
+        return _xla.sdpa_sliding(q, k, v, window=window, scale=scale)
+    if chunk:
+        return _xla.sdpa_chunked(q, k, v, chunk=chunk, scale=scale)
+    return _xla.sdpa_full(q, k, v, causal=causal, scale=scale,
+                          q_offset=q_offset, chunk=q_chunk)
 
 
 def _attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,

@@ -77,9 +77,14 @@ class Tenant:
         structural intern cache shared with structurally identical tenants."""
         with self._fn_lock:
             if self._fn is None:
+                # Interned, uncaptured and unfused: a served decode region is
+                # one task, whose fused form is the unrolled one, and
+                # capturing it as a CUDA graph (donated KV caches as static
+                # buffers) waits for serving under graphs (ROADMAP item 8).
                 with _kreg.kernel_mode_scope(self.kernel_mode):
                     self._fn = _lower.lower_tdg(
-                        self.tdg, outputs=list(self.outputs)
+                        self.tdg, jit=False, intern=True, fuse=False,
+                        outputs=list(self.outputs)
                         if self.outputs is not None else None)
             return self._fn
 
@@ -365,7 +370,7 @@ class RegionServer:
         with the shared buffers closed over (broadcast), and slices the
         outputs per member.
         """
-        base = _lower.lower_tdg(tenant.tdg, intern=False,
+        base = _lower.lower_tdg(tenant.tdg, jit=False, intern=False, fuse=False,
                                 outputs=list(tenant.outputs)
                                 if tenant.outputs is not None else None)
         from_canon, slot_map = tenant.from_canon, tenant.slot_map

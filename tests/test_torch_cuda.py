@@ -13,7 +13,11 @@ families are run with the kernels and with the plain versions. Each
 attention, grouped-matmul, RMSNorm and SSD case of the redesigned kernels
 also checks that the kernel ``kernel_for`` picks (TMA + wgmma, rows in
 registers, 3xTF32 tensor cores at the shapes they take; the first design
-otherwise) is the one whose count rose.
+otherwise) is the one whose count rose. Regions replayed from a captured
+CUDA graph (``lower_tdg(jit=True)``) must equal the uncaptured replay and
+eager, capture once per buffer signature, raise when a payload syncs the
+host, return outputs the next replay leaves alone, and launch the RMSNorm
+and flash-attention kernels inside the graph.
 """
 import pytest
 
@@ -267,3 +271,125 @@ def test_reduced_model_kernels_match_plain_versions(arch):
             logits_ref, _, _ = M.prefill(params, cfg, {"tokens": tokens}, 48)
     torch.testing.assert_close(logits, logits_ref, atol=1e-4, rtol=1e-4)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------- CUDA-graph replay of regions
+
+def _graph_region(name, **sizes):
+    from repro_torch import workloads as W
+    return W.WORKLOADS[name](**sizes, device="cuda")
+
+
+@pytest.mark.parametrize("name,sizes,rel", [
+    ("heat", {"n": 256, "nb": 8}, 1e-6),
+    ("cholesky", {"n": 512, "nb": 4}, 1e-5),
+    ("rmsnorm", {"n_tokens": 1024, "d": 2048, "nb": 8, "dtype": torch.bfloat16}, 2e-2),
+    ("attention", {"n_seqs": 8, "seq": 256, "heads": 8, "head_dim": 128, "nb": 4,
+                   "dtype": torch.bfloat16}, 2e-2),
+    ("attention", {"n_seqs": 8, "seq": 128, "heads": 4, "head_dim": 64, "nb": 4}, 2e-5)])
+def test_captured_replay_matches_uncaptured_and_eager(name, sizes, rel):
+    from repro_torch.core import EagerExecutor, ReplayExecutor, clear_intern_cache, lower_tdg
+    tdg, bufs, verify = _graph_region(name, **sizes)
+    captured = ReplayExecutor(tdg).run(bufs)
+    uncaptured = lower_tdg(tdg, jit=False)(dict(bufs))
+    eager = EagerExecutor(tdg, n_workers=4).run(dict(bufs))
+    verify(captured)
+    for other in (uncaptured, eager):
+        for k, v in other.items():
+            scale = v.float().abs().max().item()
+            assert (captured[k].float() - v.float()).abs().max().item() <= rel * scale, k
+    clear_intern_cache()
+
+
+def test_capture_once_per_signature():
+    from repro_torch.core import TDG, clear_intern_cache, lower_tdg
+    tdg = TDG("sig")
+    step = lambda x: torch.tanh(x @ x.T) @ x  # noqa: E731
+    for t in range(4):
+        tdg.add_task(step, inouts=[f"x{t}"])
+    fn = lower_tdg(tdg)
+    g = torch.Generator("cuda").manual_seed(0)
+    small = {f"x{t}": _randn(g, 8, 8) for t in range(4)}
+    large = {f"x{t}": _randn(g, 16, 16) for t in range(4)}
+    fn(small)
+    fn(small)
+    assert fn.graph_replay.captures == 1
+    out = fn(large)
+    assert fn.graph_replay.captures == 2
+    fn(small)
+    assert fn.graph_replay.captures == 2
+    want = lower_tdg(tdg, jit=False)(dict(large))
+    for k in want:
+        torch.testing.assert_close(out[k], want[k], atol=1e-5, rtol=1e-5)
+    clear_intern_cache()
+
+
+def test_host_sync_makes_the_capture_raise():
+    from repro_torch.core import TDG, GraphCaptureError, ReplayExecutor, clear_intern_cache
+    tdg = TDG("sync")
+    tdg.add_task(lambda x: x * 2, inouts=["x"], name="double")
+    tdg.add_task(lambda x: x + x.sum().item(), inouts=["x"], name="readback")
+    with pytest.raises(GraphCaptureError, match="readback"):
+        ReplayExecutor(tdg).run({"x": torch.ones(4, device="cuda")})
+    # no fallback, and the card still works
+    assert torch.equal(torch.ones(3, device="cuda") * 2, torch.full((3,), 2.0, device="cuda"))
+    clear_intern_cache()
+
+
+def test_outputs_survive_the_next_replay():
+    from repro_torch.core import TDG, clear_intern_cache, lower_tdg
+    tdg = TDG("fresh")
+    tdg.add_task(lambda x: x * 3.0, ins=["x"], outs=["y"])
+    tdg.add_task(lambda x: x + 1.0, ins=["x"], outs=["z"])
+    fn = lower_tdg(tdg)
+    a = fn({"x": torch.ones(16, device="cuda")})
+    b = fn({"x": torch.full((16,), 5.0, device="cuda")})
+    assert torch.equal(a["y"], torch.full((16,), 3.0, device="cuda"))
+    assert torch.equal(a["z"], torch.full((16,), 2.0, device="cuda"))
+    assert torch.equal(b["y"], torch.full((16,), 15.0, device="cuda"))
+    assert a["y"].data_ptr() != b["y"].data_ptr()
+    clear_intern_cache()
+
+
+@pytest.mark.parametrize("name,sizes,mod,kernel,symbol", [
+    ("rmsnorm", {"n_tokens": 2048, "d": 2048, "nb": 8, "dtype": torch.bfloat16},
+     rms, "rmsnorm_sm90", "rmsnorm_sm90_kernel"),
+    ("attention", {"n_seqs": 8, "seq": 256, "heads": 8, "head_dim": 128, "nb": 4,
+                   "dtype": torch.bfloat16}, fa, "flash_attention_sm90", "fa_sm90_kernel"),
+    ("attention", {"n_seqs": 8, "seq": 128, "heads": 4, "head_dim": 64, "nb": 4},
+     fa, "flash_attention", "fa_fwd_kernel")])
+def test_kernels_launch_inside_the_captured_graph(name, sizes, mod, kernel, symbol):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import ReplayExecutor, clear_intern_cache, lower_tdg
+    tdg, bufs, _ = _graph_region(name, **sizes)
+    plain = lower_tdg(tdg, jit=False)
+    before = dict(mod.launches_by_kernel)
+    plain(dict(bufs))
+    per_replay = mod.launches_by_kernel[kernel] - before[kernel]
+    assert per_replay >= 1
+    assert all(c.fused and c.batcher == "vmap" for c in plain.last_plan.classes)
+    ex = ReplayExecutor(tdg)
+    before = mod.launches_by_kernel[kernel]
+    ex.run(bufs)                                   # warm-up + capture
+    assert mod.launches_by_kernel[kernel] - before == 2 * per_replay
+    before = mod.launches_by_kernel[kernel]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ex.run(bufs)                               # a replay counts nothing
+        torch.cuda.synchronize()
+    assert mod.launches_by_kernel[kernel] == before
+    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    assert any(symbol in n for n in names), sorted(names)
+    clear_intern_cache()
+
+
+def test_cpu_scalar_keys_the_graph_by_value():
+    from repro_torch.core import TDG, clear_intern_cache, lower_tdg
+    tdg = TDG("scale")
+    tdg.add_task(lambda x, a: x * a, ins=["x", "a"], outs=["y"])
+    fn = lower_tdg(tdg)
+    x = torch.ones(4, device="cuda")
+    assert torch.equal(fn({"x": x, "a": torch.tensor(2.0)})["y"], 2 * x)
+    assert torch.equal(fn({"x": x, "a": torch.tensor(3.0)})["y"], 3 * x)
+    assert fn.graph_replay.captures == 2
+    clear_intern_cache()

@@ -42,14 +42,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    dense and MoE prefill shapes, grouped matmul at prefill and decode, SSD
    at the mamba2 shape and its bound both ways (f32 CUDA cores, and bytes
    against 3xTF32 tensor-core operations).
-3. Paths, one model at a time (the previous one freed first), each driven
-   the same way: 4 tenants each prefill batch 4 x 512 tokens, then 8
-   greedy decode steps each from 4 threads through the port's
-   request-level ``RegionServer`` (one-task decode TDGs). Kernel launch
-   counts are set to 0 just before each path and read just after. Every
+3. Paths, one model at a time (the previous one freed first), two paths a
+   model, each driven the same way: 4 tenants each prefill batch 4 x 512
+   tokens, then 8 greedy decode steps each from 4 threads through the
+   port's ``RegionServer`` (one-task decode TDGs, ``max_batch=4``,
+   ``max_wait_ms=5``): first the request-level dispatcher
+   (``continuous=False``), then the default server (continuous batching).
+   Under both, every served step replays a CUDA graph (``capture=True``,
+   the default). Kernel launch counts are set to 0 just before each path
+   and read just after; a wrapper counts a launch in Python, so a kernel
+   inside a graph counts at warm-up and capture, never at replay. Every
    path checks: no batch fell back to serial replay, some batch held more
-   than one tenant, the structural intern cache was hit by tenants 2..4.
-   The first designs of all four kernels launch 0 times on every path.
+   than one tenant, the structural intern cache was hit by tenants 2..4,
+   a profiler trace of one more decode round (all graph replays) names
+   each kernel the family runs in decode (``rmsnorm_sm90_kernel``, and
+   ``gmm_sm90_kernel`` for MoE), and at most 8 GiB stay reserved beyond the
+   params after the server is closed. The default server's path also
+   prints its captures and their host time and the trace ring's summary,
+   checks 0 < captures <= the (class, bucket) pairs its trace shows, and
+   runs one fixed group of 4 (``autostart=False``) through a captured and
+   an uncaptured server: the same tokens and caches. The first designs of
+   all four kernels launch 0 times on every path. After each model is
+   freed, at most 8 GiB stay reserved.
    a. qwen2.5-3b, full width and depth: the TMA + wgmma flash attention
       launched 36 times a tenant in prefill, the register-resident
       RMSNorm in prefill and decode; tenant 0's logits (prefill and one
@@ -72,9 +86,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
       the bf16 gap at depths 3, 12, 24 and 48 printed without limit
       (one-ulp differences grow with depth through the random-weight
       stack).
-4. Profile, for each path: one prefill and one more coalesced decode
-   round under ``torch.profiler``, printing the card's busy and idle
-   shares and the kernels that take the device time.
+4. Profile, for each path: one more coalesced decode round under
+   ``torch.profiler`` (and, request-level, one prefill), printing the
+   card's busy and idle shares and the kernels that take the device time.
 5. Taskgraph: the paper's record -> fuse -> lower -> replay path on the
    paper's workloads (``repro_torch.workloads``), each at a coarse and a
    fine grain, at sizes where the card does real work: Cholesky n 16,384
@@ -98,6 +112,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    record, eager (median of 5), captured and uncaptured replay (median of
    5) times, and eager's ``ExecStats``. Launch counts are set to 0 just
    before the phase and read just after.
+
+In the ``{"kernels": [...]}`` line, ``launches_by_path`` holds each path's
+counts and ``decode_round_replay_launches`` the launches of the kernel's
+symbol in the profiled decode round's trace (graph replays, which the
+counts do not see).
 
 The last lines are one ``{"kernels": [...]}`` JSON object, one
 ``{"taskgraph": [...]}`` object and then ``{"ok": true, "device": {...}}``.
@@ -629,29 +648,37 @@ def check_ssd(ssd, ref, gen) -> dict:
 
 # ---------------------------------------------------------------- paths
 
-def device_profile(label: str, fn) -> None:
+def device_profile(label: str, fn, tries: int = 1) -> dict:
     """Run ``fn`` under torch.profiler; print its wall time, the card's busy
-    and idle shares, and the kernels that took the device time."""
+    and idle shares, and the kernels that took the device time. Returns the
+    device kernels by name (launches, µs) and the idle share. A trace with
+    no device activity (the profiler has returned such traces of short runs
+    after many sessions in one process) is taken again, up to ``tries``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict[str, float] = {}
-    n = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            n += 1
-    busy = sum(by_name.values())
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                row = by_name.setdefault(e.name, [0, 0.0])
+                row[0] += 1
+                row[1] += e.time_range.elapsed_us()
+        if by_name:
+            break
+    n = sum(c for c, _ in by_name.values())
+    busy = sum(us for _, us in by_name.values())
     if not busy:
         log(f"profile {label}: wall {wall_us / 1e3:.1f} ms; device time not measured "
             f"(the profiler recorded no CUDA activity)")
-        return
+        return {"kernels": {}, "idle": None}
     groups = {"flash_attention kernel": ("fa_sm90", "fa_fwd"),   # before cuBLAS's "sm90"
               "rmsnorm_sm90 kernel": ("rmsnorm_sm90",),
               "rmsnorm kernel (first design)": ("rmsnorm_kernel",),
@@ -662,14 +689,16 @@ def device_profile(label: str, fn) -> None:
     other = "other (casts, elementwise, softmax, copies)"
     shares = {g: 0.0 for g in groups}
     shares[other] = 0.0
-    for name, us in by_name.items():
+    for name, (_, us) in by_name.items():
         g = next((g for g, keys in groups.items() if any(k in name for k in keys)), other)
         shares[g] += us
     log(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({busy / wall_us:.1%}; idle {1 - busy / wall_us:.1%}), {n} device ops; "
         + "; ".join(f"{g} {us / 1e3:.2f} ms" for g, us in shares.items() if us))
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+    for name, (_, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]:
         log(f"  {us / 1e3:8.2f} ms  {name[:100]}")
+    return {"kernels": {name: tuple(row) for name, row in by_name.items()},
+            "idle": 1 - busy / wall_us}
 
 
 def read_counts(kernels: dict) -> dict:
@@ -681,12 +710,37 @@ def read_counts(kernels: dict) -> dict:
     return out
 
 
-def serve_path(label: str, cfg, params, kernels: dict) -> dict:
-    """One model's main path: 4 tenants prefill, then decode through the
-    ``RegionServer`` from 4 threads. Every kernel's count is set to 0 just
-    before and read just after (split into prefill and decode); then one
-    profiled prefill and decode round. Checks what every path must show."""
+# the kernels each family's decode step launches, by symbol in a profiler trace
+DECODE_SYMBOLS = {"dense": ("rmsnorm_sm90_kernel",), "moe": ("rmsnorm_sm90_kernel",
+                  "gmm_sm90_kernel"), "mamba2": ("rmsnorm_sm90_kernel",)}
+RESERVED_LIMIT = 8 << 30
+
+
+def _decode_request(params, st) -> dict:
+    return {"params": params, "tokens": st["tok"][:, None], "pos": st["pos"],
+            "caches": st["caches"]}
+
+
+def _register_decoders(server, decode) -> None:
     from repro_torch.core import TDG
+
+    for i in range(TENANTS):
+        tdg = TDG(f"decode[{i}]")
+        tdg.add_task(decode, ins=["params", "tokens", "pos", "caches"],
+                     outs=["next", "caches"], name="decode")
+        server.register_tenant(f"tenant{i}", tdg, outputs=("next", "caches"))
+
+
+def serve_path(label: str, family: str, cfg, params, kernels: dict,
+               continuous: bool | None) -> dict:
+    """One model's main path: 4 tenants prefill, then decode through the
+    ``RegionServer`` from 4 threads, request-level (``continuous=False``) or
+    through the default server (continuous, every step a graph replay).
+    Every kernel's count is set to 0 just before and read just after (split
+    into prefill and decode); then a profiled decode round (and, for the
+    request-level path, a profiled prefill). Checks what every path must
+    show; the default server's path also its captures, the kernels its graph
+    replays launch, and one fixed group captured against uncaptured."""
     from repro_torch.core import lower
     from repro_torch.launch.serve import prompt_tokens
     from repro_torch.models import model as M
@@ -713,22 +767,18 @@ def serve_path(label: str, cfg, params, kernels: dict) -> dict:
                        "logits": logits})
     in_prefill = read_counts(kernels)
 
-    server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, name=f"chip-smoke-{label}")
+    server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, name=f"chip-smoke-{label}",
+                          continuous=continuous)
     errors: list[BaseException] = []
     try:
-        for i in range(TENANTS):
-            tdg = TDG(f"decode[{i}]")
-            tdg.add_task(decode, ins=["params", "tokens", "pos", "caches"],
-                         outs=["next", "caches"], name="decode")
-            server.register_tenant(f"tenant{i}", tdg, outputs=("next", "caches"))
+        _register_decoders(server, decode)
 
         def tenant_loop(i: int) -> None:
             try:
                 st = states[i]
                 for _ in range(DECODE_STEPS):
-                    out = server.serve(f"tenant{i}", {
-                        "params": params, "tokens": st["tok"][:, None],
-                        "pos": st["pos"], "caches": st["caches"]}, timeout=600)
+                    out = server.serve(f"tenant{i}", _decode_request(params, st),
+                                       timeout=600)
                     st["tok"], st["caches"] = out["next"], out["caches"]
                     st["pos"] = st["pos"] + 1
                     st["out"].append(st["tok"])
@@ -746,37 +796,51 @@ def serve_path(label: str, cfg, params, kernels: dict) -> dict:
         total = read_counts(kernels)
         # ---- end of the main path
         stats = server.stats()
+        trace = server.metrics.trace.snapshot()
         if errors:
             raise errors[0]
 
-        device_profile(f"{label} prefill (1 tenant, {BATCH}x{PROMPT})",
-                       lambda: M.prefill(params, cfg, {"tokens": prompts[0]}, max_len))
+        if not server.continuous:
+            device_profile(f"{label} prefill (1 tenant, {BATCH}x{PROMPT})",
+                           lambda: M.prefill(params, cfg, {"tokens": prompts[0]}, max_len))
 
         def decode_round():
-            futures = [server.submit(f"tenant{i}", {
-                "params": params, "tokens": st["tok"][:, None], "pos": st["pos"],
-                "caches": st["caches"]}) for i, st in enumerate(states)]
+            futures = server.submit_many([(f"tenant{i}", _decode_request(params, st))
+                                          for i, st in enumerate(states)])
             for fut in futures:
                 fut.result(timeout=600)
 
-        device_profile(f"{label} decode round ({TENANTS} tenants x batch {BATCH})",
-                       decode_round)
+        decode_round()      # any bucket the main path did not see is captured here
+        round_ms, _ = _median_ms(decode_round)
+        profiled = device_profile(f"{label} decode round ({TENANTS} tenants x batch "
+                                  f"{BATCH}, graph replays)", decode_round, tries=3)
+        parts = None
+        if server.continuous:   # the second call, with the allocator's blocks cached
+            captured_step_parts(server, params, states)
+            parts = captured_step_parts(server, params, states)
     finally:
         server.close()
 
     m = stats["metrics"]
     toks = TENANTS * BATCH * DECODE_STEPS
     in_decode = {k: total[k] - in_prefill[k] for k in total}
+    graphs = stats["graphs"]
     log(f"{label} prefill: {sum(prefill_ms):.1f} ms for {TENANTS} tenants x {BATCH}x{PROMPT} "
         f"(per tenant {', '.join(f'{x:.1f}' for x in prefill_ms)} ms)")
     log(f"{label} decode:  {t_decode * 1e3:.1f} ms for {DECODE_STEPS} steps x {TENANTS} "
         f"tenants ({toks / t_decode:.1f} tok/s)")
-    log(f"{label} server:  {m['batches']} batches, occupancy mean "
-        f"{m['batch_occupancy_mean']:.2f} max {m['batch_occupancy_max']}, "
+    log(f"{label} server:  continuous={server.continuous}, {m['batches']} batches, occupancy "
+        f"mean {m['batch_occupancy_mean']:.2f} max {m['batch_occupancy_max']}, "
         f"{m['batch_fallbacks']} fallbacks, queue peak {m['queue_depth_peak']}; "
-        f"pool {stats['pool']}; intern {stats['intern']}")
+        f"pool {stats['pool']}; intern {stats['intern']}; buckets "
+        f"{stats['buckets']['boundaries']}")
     log(f"{label} latency: p50 {m['latency']['p50_s'] * 1e3:.2f} ms  p99 "
-        f"{m['latency']['p99_s'] * 1e3:.2f} ms")
+        f"{m['latency']['p99_s'] * 1e3:.2f} ms; graphs: {graphs['captures']} captures in "
+        f"{graphs['capture_ms']:.1f} ms; a warm decode round of {TENANTS} (median of "
+        f"{REPS}) {round_ms:.2f} ms ({TENANTS * BATCH / round_ms * 1e3:.1f} tok/s)")
+    if parts:
+        log(f"{label} one captured step of {TENANTS}, host ms by part: "
+            + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     log(f"{label} launches: " + "; ".join(f"{k} {in_prefill[k]} in prefill + {in_decode[k]} "
                                           f"in decode" for k in total))
     for first in FIRST_DESIGNS:
@@ -798,8 +862,116 @@ def serve_path(label: str, cfg, params, kernels: dict) -> dict:
                 (gen >= 0) & (gen < cfg.vocab_size)).all():
             raise AssertionError(f"{label}: bad generated tokens {gen.shape}")
     log(f"{label} tenant0 sample token ids:", torch.stack(states[0]["out"], 1)[0].tolist())
+
+    replayed = {sym: sum(c for name, (c, _) in profiled["kernels"].items() if sym in name)
+                for sym in DECODE_SYMBOLS[family]}
+    log(f"{label} decode-round graph replays launched (profiler trace): {replayed}; "
+        f"card idle {profiled['idle']}")
+    missing = [sym for sym, n in replayed.items() if not n]
+    if missing:
+        raise AssertionError(f"{label}: a trace of the decode round's replays shows no "
+                             f"{missing} among {sorted(profiled['kernels'])[:12]}")
+    if server.continuous:
+        pairs = {(r["class_id"], r["bucket"]) for r in trace}
+        log(f"{label} trace: {m['trace']}; (class, bucket) pairs {sorted(pairs)}; "
+            f"occupancy by step {[r['occupancy'] for r in trace]}")
+        if not 0 < graphs["captures"] <= len(pairs):
+            raise AssertionError(f"{label}: {graphs['captures']} captures for {len(pairs)} "
+                                 f"(class, bucket) pairs in the trace")
+        fixed_group(label, decode, params, states)
+
+    del server
+    lower.clear_intern_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    reserved = torch.cuda.memory_reserved()
+    log(f"{label}: after the path {reserved / 2**30:.2f} GiB reserved, of which the params "
+        f"{param_bytes / 2**30:.2f} GiB")
+    if reserved - param_bytes > RESERVED_LIMIT:
+        raise AssertionError(f"{label}: more than 8 GiB reserved beyond the params after "
+                             f"the path")
     return {"states": states, "prompts": prompts, "max_len": max_len,
-            "prefill": in_prefill, "decode": in_decode}
+            "prefill": in_prefill, "decode": in_decode, "replayed": replayed}
+
+
+def captured_step_parts(server, params, states) -> dict | None:
+    """One coalesced step of all tenants through the server's batched
+    ``GraphReplay``, its parts timed one by one on the host (keying the
+    graph, copying the inputs in, launching the graph, waiting for it,
+    copying the packed outputs out and slicing them), with the graph's
+    device time from CUDA events. None if that graph is not held."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import lower
+
+    tenants = [server.tenant(f"tenant{i}") for i in range(TENANTS)]
+    canon = [{t.slot_map[k]: v for k, v in _decode_request(params, st).items()}
+             for t, st in zip(tenants, states)]
+    slots = sorted(canon[0])      # as the server's _run_batched_fused builds its call
+    shared = frozenset(s for s in slots if all(c[s] is canon[0][s] for c in canon[1:]))
+    args = {"per_req": tuple({s: c[s] for s in slots if s not in shared} for c in canon),
+            "shared": {s: canon[0][s] for s in shared}}
+    replay = next(e.fn for e in server.pool.entries() if e.kind == "batched")
+    if not len(replay):
+        return None
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    leaves, spec = pytree.tree_flatten(args)
+    entry = replay._graphs.get((str(spec), lower._graph_key(leaves)))
+    t.append(time.perf_counter())
+    if entry is None:
+        return None
+    torch._foreach_copy_(entry.static_in, [leaves[i] for i in entry.in_index])
+    t.append(time.perf_counter())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    entry.graph.replay()
+    end.record()
+    t.append(time.perf_counter())
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    entry.outputs({dt: buf.clone() for dt, buf in entry.flat.items()})
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    names = ("key", "copy in", "launch", "wait", "copy out + slice")
+    parts = {k: (b - a) * 1e3 for k, a, b in zip(names, t, t[1:])}
+    parts["graph device (events)"] = start.elapsed_time(end)
+    parts["input leaves"] = float(len(leaves))
+    return parts
+
+
+def fixed_group(label: str, decode, params, states) -> None:
+    """One fixed group of 4 (``autostart=False``: all 4 join the first step)
+    through a captured and an uncaptured default server: the same tokens and
+    caches."""
+    from repro_torch.serving import RegionServer
+
+    outs = {}
+    for capture in (True, False):
+        server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, autostart=False,
+                              capture=capture, name=f"chip-smoke-{label}-fixed")
+        _register_decoders(server, decode)
+        futs = [server.submit(f"tenant{i}", _decode_request(params, st))
+                for i, st in enumerate(states)]
+        server.start()
+        outs[capture] = [f.result(timeout=600) for f in futs]
+        occupancy = [r["occupancy"] for r in server.metrics.trace.snapshot()]
+        server.close()
+        if occupancy != [TENANTS]:
+            raise AssertionError(f"{label} fixed group: steps of {occupancy}, want one of "
+                                 f"{TENANTS}")
+    bitwise, gap = True, 0.0
+    for a, b in zip(outs[True], outs[False]):
+        if not torch.equal(a["next"], b["next"]):
+            raise AssertionError(f"{label} fixed group: captured and uncaptured tokens differ")
+        for x, y in zip(torch.utils._pytree.tree_leaves(a["caches"]),
+                        torch.utils._pytree.tree_leaves(b["caches"])):
+            bitwise &= torch.equal(x, y)
+            gap = max(gap, (x.float() - y.float()).abs().max().item())
+    log(f"{label} fixed group of {TENANTS}: captured == uncaptured tokens; caches "
+        f"{'bitwise equal' if bitwise else f'max abs gap {gap:.3g} (limit bf16 2e-2)'}")
+    if gap > TOL[torch.bfloat16]:
+        raise AssertionError(f"{label} fixed group: caches differ by {gap:.3g}")
 
 
 def logits_gap(params, cfg, prompt, max_len, registry, first_tok,
@@ -856,16 +1028,18 @@ def run_dense(kernels, registry) -> dict:
 
     cfg = get_config("qwen2.5-3b")
     params = init_model(cfg)
-    run = serve_path("dense", cfg, params, kernels)
-    if run["prefill"]["flash_attention_sm90"] != TENANTS * cfg.num_layers:
-        raise AssertionError(f"flash attention (TMA + wgmma) launched "
-                             f"{run['prefill']['flash_attention_sm90']} times in prefill, not "
-                             f"{cfg.num_layers} a tenant")
-    need_both(run, "rmsnorm_sm90")
+    runs = {}
+    for label, continuous in (("dense", False), ("dense continuous", None)):
+        run = runs[label] = serve_path(label, "dense", cfg, params, kernels, continuous)
+        if run["prefill"]["flash_attention_sm90"] != TENANTS * cfg.num_layers:
+            raise AssertionError(f"flash attention (TMA + wgmma) launched "
+                                 f"{run['prefill']['flash_attention_sm90']} times in prefill, "
+                                 f"not {cfg.num_layers} a tenant")
+        need_both(run, "rmsnorm_sm90")
     gap = logits_gap(params, cfg, run["prompts"][0], run["max_len"], registry,
                      run["states"][0]["out"][0])
     check_gap("dense", gap, 2e-2)
-    return run
+    return runs
 
 
 @contextlib.contextmanager
@@ -927,19 +1101,21 @@ def run_moe(kernels, registry) -> dict:
 
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=MOE_LAYERS)
     params = init_model(cfg)
-    run = serve_path("moe", cfg, params, kernels)
-    per_tenant = 3 * cfg.num_layers
-    if run["prefill"]["grouped_matmul_sm90"] != TENANTS * per_tenant:
-        raise AssertionError(f"grouped matmul (TMA + wgmma) launched "
-                             f"{run['prefill']['grouped_matmul_sm90']} times in prefill, not "
-                             f"{per_tenant} a tenant")
-    if not run["decode"]["grouped_matmul_sm90"] > 0:
-        raise AssertionError("grouped matmul kernel never launched in decode")
-    if run["prefill"]["flash_attention_sm90"] != TENANTS * cfg.num_layers:
-        raise AssertionError(f"flash attention (TMA + wgmma) launched "
-                             f"{run['prefill']['flash_attention_sm90']} times in MoE prefill, "
-                             f"not {cfg.num_layers} a tenant")
-    need_both(run, "rmsnorm_sm90")
+    runs = {}
+    for label, continuous in (("moe", False), ("moe continuous", None)):
+        run = runs[label] = serve_path(label, "moe", cfg, params, kernels, continuous)
+        per_tenant = 3 * cfg.num_layers
+        if run["prefill"]["grouped_matmul_sm90"] != TENANTS * per_tenant:
+            raise AssertionError(f"grouped matmul (TMA + wgmma) launched "
+                                 f"{run['prefill']['grouped_matmul_sm90']} times in prefill, "
+                                 f"not {per_tenant} a tenant")
+        if not run["decode"]["grouped_matmul_sm90"] > 0:
+            raise AssertionError("grouped matmul kernel never launched in decode")
+        if run["prefill"]["flash_attention_sm90"] != TENANTS * cfg.num_layers:
+            raise AssertionError(f"flash attention (TMA + wgmma) launched "
+                                 f"{run['prefill']['flash_attention_sm90']} times in MoE "
+                                 f"prefill, not {cfg.num_layers} a tenant")
+        need_both(run, "rmsnorm_sm90")
 
     prompt, first = run["prompts"][0], run["states"][0]["out"][0]
     n = cfg.num_layers
@@ -980,7 +1156,7 @@ def run_moe(kernels, registry) -> dict:
     diff, total = routing_diff(routes[:n], own[:n])
     log(f"moe bf16 whole model (unpinned, no limit): prefill logits rel L2 {pre:.3g}, "
         f"decode step {dec:.3g}; {diff} of {total} prefill expert choices differ")
-    return run
+    return runs
 
 
 def run_mamba(kernels, registry) -> dict:
@@ -989,13 +1165,16 @@ def run_mamba(kernels, registry) -> dict:
 
     cfg = get_config("mamba2-370m")
     params = init_model(cfg)
-    run = serve_path("mamba2", cfg, params, kernels)
-    if run["prefill"]["ssd_chunk_sm90"] != TENANTS * cfg.num_layers:
-        raise AssertionError(f"SSD (tensor cores) launched {run['prefill']['ssd_chunk_sm90']} "
-                             f"times in prefill, not {cfg.num_layers} a tenant")
-    if run["decode"]["ssd_chunk_sm90"] != 0:
-        raise AssertionError("SSD kernel launched in decode (the recurrence runs there)")
-    need_both(run, "rmsnorm_sm90")
+    runs = {}
+    for label, continuous in (("mamba2", False), ("mamba2 continuous", None)):
+        run = runs[label] = serve_path(label, "mamba2", cfg, params, kernels, continuous)
+        if run["prefill"]["ssd_chunk_sm90"] != TENANTS * cfg.num_layers:
+            raise AssertionError(f"SSD (tensor cores) launched "
+                                 f"{run['prefill']['ssd_chunk_sm90']} times in prefill, not "
+                                 f"{cfg.num_layers} a tenant")
+        if run["decode"]["ssd_chunk_sm90"] != 0:
+            raise AssertionError("SSD kernel launched in decode (the recurrence runs there)")
+        need_both(run, "rmsnorm_sm90")
     prompt, first = run["prompts"][0], run["states"][0]["out"][0]
     # (a) f32, same weights: the kernels against the plain versions
     check_gap("mamba2 f32", logits_gap(params, dataclasses.replace(cfg, dtype="float32"),
@@ -1026,7 +1205,7 @@ def run_mamba(kernels, registry) -> dict:
         params.layers = layers
     log(f"mamba2 bf16 logits rel L2 by depth, prefill / decode step (no limit): "
         + ", ".join(gaps))
-    return run
+    return runs
 
 
 # ---------------------------------------------------------------- taskgraph
@@ -1260,18 +1439,21 @@ def main() -> int:
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
 
     kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm, "ssd": ssd}
-    runs = {}
-    for label, run_fn in (("dense", run_dense), ("moe", run_moe), ("mamba2", run_mamba)):
+    runs, replayed = {}, {}
+    for family, run_fn in (("dense", run_dense), ("moe", run_moe), ("mamba2", run_mamba)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run = run_fn(kernels, registry)
-        runs[label] = {k: run["prefill"][k] + run["decode"][k] for k in run["prefill"]}
-        del run
-        log(f"path {label}: {time.perf_counter() - t0:.1f} s, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    gc.collect()
-    torch.cuda.empty_cache()
+        for label, run in run_fn(kernels, registry).items():
+            runs[label] = {k: run["prefill"][k] + run["decode"][k] for k in run["prefill"]}
+            replayed[label] = run["replayed"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"paths {family}: {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved after freeing the model")
+        if torch.cuda.memory_reserved() > RESERVED_LIMIT:
+            raise AssertionError(f"{family}: more than 8 GiB reserved after freeing the model")
 
     # ---- the taskgraph path: counts zeroed just before, read just after
     for mod in kernels.values():
@@ -1286,6 +1468,10 @@ def main() -> int:
     for e in entries:
         src = Path(e["source"]).stem
         e["launches_by_path"] = {label: counts[src] for label, counts in runs.items()}
+        symbol = {"rmsnorm_sm90": "rmsnorm_sm90_kernel",
+                  "grouped_matmul_sm90": "gmm_sm90_kernel"}.get(src)
+        e["decode_round_replay_launches"] = {   # one profiled round, from its trace
+            label: r[symbol] for label, r in replayed.items() if symbol in r}
         e["launches"] = sum(e["launches_by_path"].values())
         if not e["launches"] > 0:
             raise AssertionError(f"{e['name']} never launched on the main path")

@@ -18,9 +18,10 @@ per-task orchestration. Three layers, as in the reference:
 * **CUDA-graph replay** (``jit=True``, the counterpart of ``jax.jit``): on
   CUDA buffers the lowered callable is captured once per buffer signature
   as a ``torch.cuda.CUDAGraph`` over static input buffers, and each call
-  copies its inputs in, replays the graph and returns fresh outputs. CPU
-  buffers have no graph: the callable runs as it is. See
-  :class:`GraphReplay`.
+  copies its inputs in, replays the graph and returns fresh outputs.
+  Donated slots are the graph's own buffers: nothing is copied in or out
+  for them (the reference's ``_jit_with_donation``). CPU buffers have no
+  graph: the callable runs as it is. See :class:`GraphReplay`.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import dataclasses
 import math
 import os
 import threading
+import time
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
@@ -100,17 +102,25 @@ class GraphCaptureError(RuntimeError):
 #: only while it is this small.
 CPU_VALUE_NUMEL = 16
 
+#: Graphs one :class:`GraphReplay` keeps, least recently used evicted first:
+#: each holds its static buffers and its share of the replay's memory pool.
+_GRAPH_CAP = 32
 
-def _graph_key(leaves: list) -> tuple:
-    """What a captured graph bakes in: each CUDA tensor's shape, dtype,
-    device and strides (its data is copied in at every call); a small CPU
-    tensor's values; each module by identity (the graph reads its
-    parameters' storage); every other leaf by value."""
+
+def _graph_key(leaves: list, donated: list | None = None) -> tuple:
+    """What a captured graph bakes in: each CUDA tensor's shape, dtype and
+    device (its data is copied into the static buffer, whose layout is the
+    first caller's, at every call, whatever the caller's strides), and a
+    donated one's address and strides (the graph reads and writes its
+    storage); a small CPU tensor's values; each module by identity (the
+    graph reads its parameters' storage); every other leaf by value."""
     key = []
-    for leaf in leaves:
+    for i, leaf in enumerate(leaves):
         if isinstance(leaf, torch.Tensor):
             if leaf.is_cuda:
-                key.append((tuple(leaf.shape), leaf.dtype, leaf.device, leaf.stride()))
+                key.append((tuple(leaf.shape), leaf.dtype, leaf.device)
+                           + ((leaf.data_ptr(), leaf.stride()) if donated and donated[i]
+                              else ()))
             elif leaf.numel() <= CPU_VALUE_NUMEL:
                 key.append(("cpu", tuple(leaf.shape), leaf.dtype,
                             tuple(leaf.flatten().tolist())))
@@ -161,13 +171,25 @@ def _side_stream(device: torch.device):
 @dataclasses.dataclass
 class _Captured:
     graph: torch.cuda.CUDAGraph
+    device: torch.device
     static_in: list                # tensors the inputs are copied into
     in_index: list[int]            # their positions among the input leaves
     out_spec: Any                  # tree structure of the output dict
-    out_leaves: list               # non-tensor output leaves, as captured
     flat: dict                     # dtype -> packed outputs (graph memory)
-    layout: list                   # per output leaf: (dtype, offset, shape) or None
-    pinned: list                   # modules keyed by id: kept alive
+    layout: list                   # per output leaf: see _Captured.outputs
+    pinned: list                   # modules keyed by id, donated tensors: kept alive
+
+    def outputs(self, fresh: dict) -> Any:
+        """The output tree: packed leaves as views of ``fresh`` (a copy of
+        ``flat``), donated leaves as the donated tensors, the rest as
+        captured."""
+        out = []
+        for kind, a, b, c in self.layout:
+            if kind == "packed":
+                out.append(fresh[a][b:b + math.prod(c)].view(c))
+            else:               # "donated": the tensor; "value": as captured
+                out.append(a)
+        return pytree.tree_unflatten(out, self.out_spec)
 
 
 class GraphReplay:
@@ -175,96 +197,192 @@ class GraphReplay:
 
     The first call with a new signature copies the inputs into static
     buffers, runs ``fn`` once on the device's side stream (a warm-up that
-    builds the kernels and sets their attributes outside the capture), then
+    builds the kernels and sets their attributes outside the capture; an
+    error there is the region's own and propagates as it is), then
     captures ``fn`` on that stream over the static buffers; inside the
-    graph the outputs are packed,
-    per dtype, into one flat buffer. Each call copies its inputs into the
-    static buffers, replays the graph and returns outputs that are views of
-    a fresh copy of the packed buffer, so the next replay never overwrites
-    what an earlier call returned. Buffers without a CUDA tensor take ``fn``
-    as it is. A capture that fails raises :class:`GraphCaptureError` naming
-    the task that was running; nothing falls back to the uncaptured form.
-    ``captures`` counts the graphs captured.
+    graph the outputs are packed, per dtype, into one flat buffer. Each call
+    copies its inputs into the static buffers, replays the graph and returns
+    outputs that are views of a fresh copy of the packed buffer, so the next
+    replay never overwrites what an earlier call returned. Buffers without a
+    CUDA tensor take ``fn`` as it is. A capture that fails raises
+    :class:`GraphCaptureError` naming the task that was running; nothing
+    falls back to the uncaptured form. The capture's error mode is
+    ``"thread_local"``: other threads may keep issuing work on the card
+    while one captures.
+
+    **Donation** (``donate``: top-level buffer slots the caller gives up).
+    A donated slot's CUDA tensors are not copied: they are the graph's
+    static buffers for that slot, and their addresses key the graph. An
+    output the region writes to a donated slot (same tree, shapes and
+    dtypes) is written into that storage at the end of the graph and
+    returned as that tensor, not as a copy. So a caller that passes back
+    what the last call returned replays with nothing copied in or out for
+    that slot; a donated tensor the replay has not seen is captured once
+    more. As in JAX, the caller gives the donated input up: after the call
+    it holds the output.
+
+    The graphs share one memory pool (replays are serialized under a lock
+    and their outputs copied out before it is released) and are bounded by
+    ``_GRAPH_CAP``, least recently used evicted first. :meth:`release`
+    drops them all. ``captures`` counts the graphs captured and
+    ``capture_seconds`` the host time their warm-ups and captures took.
     """
 
-    def __init__(self, fn: Callable[[dict], dict], name: str):
+    def __init__(self, fn: Callable[[dict], dict], name: str, donate: Sequence[str] = ()):
         self.fn = fn
         self.name = name
-        self._graphs: dict[tuple, _Captured] = {}
+        self.donate = frozenset(donate)
+        self._graphs: collections.OrderedDict[tuple, _Captured] = collections.OrderedDict()
         self._lock = threading.Lock()
+        self._pool = None
+        self._last_stream = None
         self.captures = 0
+        self.capture_seconds = 0.0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
 
     def release(self) -> None:
-        """Drop the captured graphs, their static buffers and memory pools
-        (the next call with a signature captures it again)."""
+        """Drop the captured graphs, their static buffers and their memory
+        pool (the next call with a signature captures it again)."""
         with self._lock:
+            if self._graphs:
+                torch.cuda.synchronize()     # no replay still runs in the pool
             self._graphs.clear()
+            self._pool = None
+            self._last_stream = None
+
+    def _donated_leaves(self, buffers: dict) -> list | None:
+        """Per input leaf (dict order, as ``tree_flatten`` walks it): does
+        it belong to a donated slot?"""
+        if not self.donate.intersection(buffers):
+            return None
+        return [k in self.donate for k, v in buffers.items()
+                for _ in range(len(pytree.tree_leaves(v)))]
 
     def __call__(self, buffers: Mapping[str, Any]) -> dict:
-        leaves, spec = pytree.tree_flatten(dict(buffers))
+        buffers = dict(buffers)
+        leaves, spec = pytree.tree_flatten(buffers)
         if not any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves):
             return self.fn(buffers)
-        key = (str(spec), _graph_key(leaves))
+        donated = self._donated_leaves(buffers)
+        key = (str(spec), _graph_key(leaves, donated))
         with self._lock:
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._graphs[key] = self._capture(leaves, spec)
-            torch._foreach_copy_(entry.static_in, [leaves[i] for i in entry.in_index])
+                entry = self._graphs[key] = self._capture(leaves, spec, donated)
+                while len(self._graphs) > _GRAPH_CAP:
+                    torch.cuda.synchronize()
+                    self._graphs.popitem(last=False)
+                    self.evictions += 1
+            else:
+                self._graphs.move_to_end(key)
+            stream = torch.cuda.current_stream(entry.device)
+            if self._last_stream is not None and self._last_stream != stream:
+                stream.wait_stream(self._last_stream)   # the pool's last user first
+            self._last_stream = stream
+            if entry.in_index:
+                torch._foreach_copy_(entry.static_in, [leaves[i] for i in entry.in_index])
             entry.graph.replay()
             fresh = {dt: buf.clone() for dt, buf in entry.flat.items()}
-        out, it = [], iter(entry.out_leaves)
-        for lay in entry.layout:
-            if lay is None:
-                out.append(next(it))
-            else:
-                dt, off, shape = lay
-                out.append(fresh[dt][off:off + math.prod(shape)].view(shape))
-        return pytree.tree_unflatten(out, entry.out_spec)
+        return entry.outputs(fresh)
 
-    def _capture(self, leaves: list, spec) -> _Captured:
-        in_index = [i for i, l in enumerate(leaves)
-                    if isinstance(l, torch.Tensor) and l.is_cuda]
-        static_in = [leaves[i].clone() for i in in_index]
+    def _capture(self, leaves: list, spec, donated: list | None) -> _Captured:
+        t0 = time.perf_counter()
+        cuda = [i for i, l in enumerate(leaves) if isinstance(l, torch.Tensor) and l.is_cuda]
+        in_index = [i for i in cuda if not (donated and donated[i])]
         static_leaves = list(leaves)
-        for i, t in zip(in_index, static_in):
-            static_leaves[i] = t
+        for i in in_index:
+            static_leaves[i] = leaves[i].clone()
         static_buffers = pytree.tree_unflatten(static_leaves, spec)
-        device = static_in[0].device
+        device = leaves[cuda[0]].device
         side = _side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         _fuse._current.label = None
+        with torch.cuda.stream(side):
+            self.fn(static_buffers)               # warm-up, outside the capture
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.stream(side):
-                self.fn(static_buffers)           # warm-up, outside the capture
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                  capture_error_mode="thread_local"):
                 out = self.fn(static_buffers)
                 out_leaves, out_spec = pytree.tree_flatten(out)
-                flat, layout, rest = _pack(out_leaves)
+                into = self._donated_outputs(out, out_leaves, static_buffers)
+                flat, layout = _pack(out_leaves, into)
+                _write_donated(out_leaves, into)
             torch.cuda.current_stream(device).wait_stream(side)
         except Exception as e:
             raise GraphCaptureError(
                 f"CUDA graph capture of region {self.name!r} failed in task "
                 f"{_fuse.current_task()!r}: {type(e).__name__}: {e}") from e
+        torch.cuda.synchronize(device)
         self.captures += 1
-        return _Captured(graph, static_in, in_index, out_spec, rest, flat, layout,
-                         [l for l in leaves if isinstance(l, nn.Module)])
+        self.capture_seconds += time.perf_counter() - t0
+        return _Captured(graph, device, [static_leaves[i] for i in in_index], in_index, out_spec,
+                         flat, layout,
+                         [l for i, l in enumerate(leaves) if isinstance(l, nn.Module)
+                          or (donated and donated[i])])
+
+    def _donated_outputs(self, out, out_leaves: list, static_buffers: dict) -> dict:
+        """Output leaf index -> the donated static tensor it is written to:
+        a donated slot's output whose tree, shapes and dtypes match the
+        slot's input."""
+        into: dict[int, torch.Tensor] = {}
+        if not self.donate or not isinstance(out, dict):
+            return into
+        base = 0
+        for k, v in out.items():
+            n = len(pytree.tree_leaves(v))
+            if k in self.donate and k in static_buffers:
+                src, src_spec = pytree.tree_flatten(static_buffers[k])
+                dst, dst_spec = pytree.tree_flatten(v)
+                if src_spec == dst_spec:
+                    for j, (s, o) in enumerate(zip(src, dst)):
+                        if (isinstance(s, torch.Tensor) and isinstance(o, torch.Tensor)
+                                and s.is_cuda and s.shape == o.shape and s.dtype == o.dtype
+                                and s.device == o.device):
+                            into[base + j] = s
+            base += n
+        return into
 
 
-def _pack(leaves: list) -> tuple[dict, list, list]:
-    """Pack tensor leaves, per dtype, into one flat buffer each."""
+def _pack(leaves: list, into: dict) -> tuple[dict, list]:
+    """Pack tensor leaves not written to a donated buffer (``into``), per
+    dtype, into one flat buffer each; the layout of every output leaf."""
     groups: dict[torch.dtype, list] = {}
-    layout, rest = [], []
-    for leaf in leaves:
-        if isinstance(leaf, torch.Tensor):
+    layout = []
+    for i, leaf in enumerate(leaves):
+        if i in into:
+            layout.append(("donated", into[i], None, None))
+        elif isinstance(leaf, torch.Tensor):
             parts = groups.setdefault(leaf.dtype, [])
-            layout.append((leaf.dtype, sum(p.numel() for p in parts), tuple(leaf.shape)))
+            layout.append(("packed", leaf.dtype, sum(p.numel() for p in parts),
+                           tuple(leaf.shape)))
             parts.append(leaf.reshape(-1))
         else:
-            layout.append(None)
-            rest.append(leaf)
+            layout.append(("value", leaf, None, None))
     flat = {dt: torch.cat(parts) for dt, parts in groups.items()}
-    return flat, layout, rest
+    return flat, layout
+
+
+def _write_donated(leaves: list, into: dict) -> None:
+    """Write each donated output into its donated buffer. An output that
+    shares storage with any donated buffer (the input passed through, a
+    transpose of it) is copied first, so no write reads what another wrote."""
+    storages = {t.untyped_storage().data_ptr() for t in into.values()}
+    pending = []
+    for i, dst in into.items():
+        out = leaves[i]
+        if out is dst:
+            continue
+        if out.untyped_storage().data_ptr() in storages:
+            out = out.clone()
+        pending.append((dst, out))
+    for dst, out in pending:
+        dst.copy_(out)
 
 
 # ------------------------------------------------------------- interning
@@ -334,7 +452,7 @@ def _interned_lower(tdg: TDG, outputs, donate_slots: tuple[str, ...],
             return {slot_map[s]: v for s, v in out.items()}
 
         canon_run.__name__ = f"tdg_interned_{tdg.region}"
-        new = _InternEntry(payloads, GraphReplay(canon_run, tdg.region)
+        new = _InternEntry(payloads, GraphReplay(canon_run, tdg.region, canon_donate)
                            if jit else canon_run)
         with _intern_lock:
             entry = _intern_cache.setdefault(key, new)
@@ -382,8 +500,15 @@ def lower_tdg(tdg: TDG, order: Sequence[int] | None = None,
     captured one. ``batcher`` is
     ``"vmap"`` / ``"map"`` (pinned for every class) or ``"auto"`` (the cost
     model per class; ``REPRO_TORCH_ADAPTIVE=0`` makes it ``"vmap"``).
-    ``donate_slots`` names buffers the caller gives up: a key component, as
-    in the reference; no buffer is reused from them yet.
+    ``donate_slots`` names buffers the caller gives up (the reference's
+    ``_jit_with_donation``), and keys the intern cache. On CUDA buffers with
+    ``jit=True`` each donated tensor is the captured graph's static buffer
+    for its slot: an output written to that slot is written into its storage
+    and returned as that tensor, and a later call that passes the same
+    tensor back copies nothing in for it (:class:`GraphReplay`). As in JAX,
+    the caller gives the donated input up: after the call it holds the
+    output. On the CPU, and with ``jit=False``, the region runs as it is and
+    the donated input is left alone.
     """
     donate_slots = tuple(donate_slots)
     do_fuse = fuse_enabled(fuse) and order is None
@@ -397,4 +522,4 @@ def lower_tdg(tdg: TDG, order: Sequence[int] | None = None,
                                donate_slots, do_fuse, min_class_size, batcher, jit)
     fn = (_base_function(tdg, outputs, do_fuse, min_class_size, batcher)
           if order is None else tdg_as_function(tdg, order=order, outputs=outputs))
-    return GraphReplay(fn, tdg.region) if jit else fn
+    return GraphReplay(fn, tdg.region, donate_slots) if jit else fn

@@ -16,9 +16,12 @@ and no ``--device cpu`` it raises.
 
 * **Multi-tenant server** (``--server``): N tenants each own a decode-step
   TDG (same structure, same payload, private caches, shared params) and
-  drive it from N threads through the request-level
-  :class:`repro_torch.serving.RegionServer`, which coalesces concurrent
-  steps into one ``torch.func.vmap``-batched replay.
+  drive it from N threads through :class:`repro_torch.serving.RegionServer`,
+  which batches concurrent steps continuously (``--request-level`` for the
+  run-to-completion dispatcher) into one ``torch.func.vmap``-batched
+  replay, each step replayed from a CUDA graph on the card. ``--tiers``
+  and ``--tenant-rate`` set the tenants' QoS tiers and rate limits;
+  ``--trace-out`` writes the per-step trace ring as JSON.
 
       PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
           --server --tenants 4
@@ -101,6 +104,21 @@ def _run_single_stream(args, cfg, params, device) -> int:
     return 0
 
 
+def _tenant_tiers(args) -> list[int]:
+    """Per-tenant QoS tiers from ``--tiers`` ("1" or "0,1,...", cycled)."""
+    if not args.tiers:
+        return [0] * args.tenants
+    cycle = [max(0, int(t)) for t in str(args.tiers).split(",") if t.strip()]
+    return [cycle[i % len(cycle)] for i in range(args.tenants)]
+
+
+def _print_tier_latency(tiers_summary) -> None:
+    for tier in sorted(tiers_summary or {}, key=int):
+        s = tiers_summary[tier]
+        print(f"tier {tier}: n {s['count']}  p50 {s['p50_s']*1e3:.2f} ms  "
+              f"p99 {s['p99_s']*1e3:.2f} ms")
+
+
 def _run_server(args, cfg, params, device) -> int:
     from ..core import TDG
     from ..serving import RegionServer
@@ -123,14 +141,17 @@ def _run_server(args, cfg, params, device) -> int:
     t_prefill = time.time() - t0
 
     server = RegionServer(max_batch=args.max_batch or args.tenants,
-                          max_wait_ms=args.max_wait_ms, name="decode-server")
+                          max_wait_ms=args.max_wait_ms, name="decode-server",
+                          continuous=False if args.request_level else None)
+    tiers = _tenant_tiers(args)
     for i in range(args.tenants):
         # One decode-step region per tenant, structurally identical across
         # tenants (same payload object), so they intern to one entry.
         tdg = TDG(f"decode[{i}]")
         tdg.add_task(decode, ins=["params", "tokens", "pos", "caches"],
                      outs=["next", "caches"], name="decode")
-        server.register_tenant(f"tenant{i}", tdg, outputs=("next", "caches"))
+        server.register_tenant(f"tenant{i}", tdg, outputs=("next", "caches"),
+                               tier=tiers[i], rate=args.tenant_rate or None)
 
     errors: list[BaseException] = []
 
@@ -174,6 +195,12 @@ def _run_server(args, cfg, params, device) -> int:
     print(f"pool:    {stats['pool']}  intern: {stats['intern']}")
     print(f"latency: p50 {m['latency']['p50_s']*1e3:.2f} ms  "
           f"p99 {m['latency']['p99_s']*1e3:.2f} ms")
+    _print_tier_latency(m.get("tiers"))
+    print(f"trace:   {m['trace']}")
+    print(f"graphs:  {stats['graphs']}")
+    if args.trace_out:
+        server.dump_trace(args.trace_out)
+        print(f"trace ring written to {args.trace_out}")
     _print_kernels()
     for i in (0, args.tenants - 1):
         gen = torch.stack(states[i]["out"], dim=1)
@@ -194,13 +221,25 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     ap.add_argument("--server", action="store_true",
-                    help="multi-tenant request-level RegionServer mode")
+                    help="multi-tenant RegionServer mode")
     ap.add_argument("--tenants", type=int, default=4,
                     help="[--server] concurrent decode tenants")
     ap.add_argument("--max-batch", type=int, default=0,
                     help="[--server] coalescing ceiling (0 = #tenants)")
     ap.add_argument("--max-wait-ms", type=float, default=5.0,
                     help="[--server] admission window for coalescing")
+    ap.add_argument("--request-level", action="store_true",
+                    help="[--server] run-to-completion batching instead of "
+                         "continuous (iteration-level)")
+    ap.add_argument("--tiers", default=None, metavar="T0,T1,...",
+                    help="[--server] per-tenant QoS tiers, cycled over tenants "
+                         "(e.g. '0,1'); default all tier 0")
+    ap.add_argument("--tenant-rate", type=float, default=0.0,
+                    help="[--server] per-tenant token-bucket rate limit in req/s "
+                         "(0 = unlimited)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="[--server] dump the execution-pattern trace ring to PATH "
+                         "as JSON after the run")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)

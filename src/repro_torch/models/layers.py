@@ -109,7 +109,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
     xr, xp = x[..., :rot], x[..., rot:]
     half = rot // 2
     exps = -torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    # made on the device: a host tensor copied in would sync a captured step
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exps)
     ang = positions[..., None].float() * freqs                # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

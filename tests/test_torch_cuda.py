@@ -17,7 +17,11 @@ otherwise) is the one whose count rose. Regions replayed from a captured
 CUDA graph (``lower_tdg(jit=True)``) must equal the uncaptured replay and
 eager, capture once per buffer signature, raise when a payload syncs the
 host, return outputs the next replay leaves alone, and launch the RMSNorm
-and flash-attention kernels inside the graph.
+and flash-attention kernels inside the graph. A donated slot round-trips
+through the graph with nothing copied in; graphs are bounded and released;
+the server's steps are captured from its scheduler thread while client
+threads keep issuing device ops, give what the uncaptured steps give, and a
+failed capture fails a batch without counting as a fallback.
 """
 import pytest
 
@@ -392,4 +396,156 @@ def test_cpu_scalar_keys_the_graph_by_value():
     assert torch.equal(fn({"x": x, "a": torch.tensor(2.0)})["y"], 2 * x)
     assert torch.equal(fn({"x": x, "a": torch.tensor(3.0)})["y"], 3 * x)
     assert fn.graph_replay.captures == 2
+    clear_intern_cache()
+
+
+# ------------------------------------------- donation, graph memory, served steps
+
+def _donating_region():
+    from repro_torch.core import TDG
+    tdg = TDG("donate")
+    tdg.add_task(lambda s, g: torch.tanh(s @ g) + s, ins=["state", "g"], outs=["state"])
+    tdg.add_task(lambda g: g * 2.0, ins=["g"], outs=["y"])
+    return tdg
+
+
+@pytest.mark.parametrize("intern", [True, False])
+def test_donated_slot_round_trips_without_a_copy(intern):
+    from repro_torch.core import clear_intern_cache, lower_tdg
+    tdg = _donating_region()
+    fn = lower_tdg(tdg, donate_slots=("state",), intern=intern)
+    replay = fn.graph_replay if intern else fn
+    plain = lower_tdg(tdg, jit=False)
+    gen = torch.Generator("cuda").manual_seed(3)
+    state, g = _randn(gen, 16, 16) * 0.1, _randn(gen, 16, 16) * 0.1
+    for step in range(4):
+        want = plain({"state": state.clone(), "g": g})
+        ptr = state.data_ptr()
+        out = fn({"state": state, "g": g})
+        assert out["state"] is state and state.data_ptr() == ptr   # written in place
+        assert torch.equal(state, want["state"]) and torch.equal(out["y"], want["y"])
+        (entry,) = replay._graphs.values()
+        assert len(entry.static_in) == 1 and entry.static_in[0].data_ptr() != ptr  # g only
+    assert replay.captures == 1                  # passed back: the same graph, no copy in
+    other = state.clone()
+    fn({"state": other, "g": g})                 # a tensor it has not seen: captured once more
+    assert replay.captures == 2 and torch.equal(other, plain({"state": state, "g": g})["state"])
+    clear_intern_cache()
+
+
+def test_graphs_are_bounded_and_released():
+    from repro_torch.core import TDG, clear_intern_cache, lower, lower_tdg
+    tdg = TDG("lru")
+    tdg.add_task(lambda x: x * 2.0 + 1.0, inouts=["x"])
+    fn = lower_tdg(tdg)
+    extra = 3
+    for n in range(lower._GRAPH_CAP + extra):
+        out = fn({"x": torch.full((n + 1,), float(n), device="cuda")})
+        assert torch.equal(out["x"], torch.full((n + 1,), 2.0 * n + 1.0, device="cuda"))
+    replay = fn.graph_replay
+    assert len(replay) == lower._GRAPH_CAP and replay.evictions == extra
+    clear_intern_cache()
+    assert len(replay) == 0
+
+
+def _served(fn, n=4, **server_kw):
+    """n tenants of a one-task region over a shared weight; the server,
+    inputs, and what each input gives uncaptured."""
+    from repro_torch.core import TDG, lower_tdg
+    from repro_torch.serving import RegionServer
+    server = RegionServer(max_batch=n, **{"max_wait_ms": 5, **server_kw})
+    gen = torch.Generator("cuda").manual_seed(4)
+    w = _randn(gen, 32, 32) * 0.2
+    reqs = []
+    for i in range(n):
+        tdg = TDG(f"served[{i}]")
+        tdg.add_task(fn, ins=["x", "w"], outs=["x"])
+        server.register_tenant(f"t{i}", tdg)
+        reqs.append({"x": _randn(gen, 8, 32), "w": w})
+    plain = lower_tdg(tdg, jit=False)
+    return server, reqs, plain
+
+
+def _mix(x, w):
+    return torch.tanh(x @ w) * 0.5 + x
+
+
+def test_capture_from_the_scheduler_thread_while_clients_issue_device_ops():
+    import threading
+    from repro_torch.core import clear_intern_cache
+    stop, errors = threading.Event(), []
+
+    def noise():
+        try:
+            y = torch.ones(4096, device="cuda")
+            while not stop.is_set():
+                y = y + 1                 # small ops on the default stream, all along
+        except Exception as e:            # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=noise) for _ in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        server, reqs, plain = _served(_mix)
+        outs = []
+        for _ in range(3):
+            futs = server.submit_many([(f"t{i}", r) for i, r in enumerate(reqs)])
+            outs = [f.result(120) for f in futs]
+        stats = server.stats()
+        server.close()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    assert not errors and stats["graphs"]["captures"] >= 1
+    assert stats["metrics"]["batch_fallbacks"] == 0 and stats["metrics"]["failed"] == 0
+    for r, out in zip(reqs, outs):
+        torch.testing.assert_close(out["x"], plain(dict(r))["x"], atol=2e-5, rtol=2e-5)
+    clear_intern_cache()
+
+
+def test_server_close_releases_every_graph():
+    from repro_torch.core import clear_intern_cache
+    server, reqs, _ = _served(_mix)
+    for f in server.submit_many([(f"t{i}", r) for i, r in enumerate(reqs)]):
+        f.result(120)
+    f = server.submit("t0", reqs[0])
+    f.result(120)
+    assert server.stats()["graphs"]["held"] >= 1
+    server.close()
+    assert server.stats()["graphs"]["held"] == 0
+    clear_intern_cache()
+
+
+def test_a_failed_capture_fails_the_batch_and_is_no_fallback():
+    from repro_torch.core import GraphCaptureError, clear_intern_cache
+
+    def syncs(x, w):
+        torch.cuda.synchronize()          # fine uncaptured and under vmap; not in a capture
+        return _mix(x, w)
+
+    server, reqs, _ = _served(syncs, continuous=False, max_wait_ms=0, autostart=False)
+    futs = [server.submit(f"t{i}", r) for i, r in enumerate(reqs)]
+    server.start()
+    for f in futs:
+        with pytest.raises(GraphCaptureError):
+            f.result(120)
+    server.close()
+    m = server.stats()["metrics"]
+    assert m["batch_fallbacks"] == 0 and m["failed"] == len(reqs) and m["completed"] == 0
+    clear_intern_cache()
+
+
+def test_captured_and_uncaptured_steps_are_equal():
+    from repro_torch.core import clear_intern_cache
+    outs = {}
+    for capture in (True, False):
+        server, reqs, _ = _served(_mix, autostart=False, capture=capture)
+        futs = [server.submit(f"t{i}", r) for i, r in enumerate(reqs)]
+        server.start()
+        outs[capture] = [f.result(120)["x"] for f in futs]
+        server.close()
+    for a, b in zip(outs[True], outs[False]):
+        assert torch.equal(a, b)
     clear_intern_cache()

@@ -154,12 +154,34 @@ class TestSchedulerPolicies:
         assert seen == ["ref"]
         T.clear_intern_cache()
 
-    def test_donation_slots(self):
-        tdg = T.TDG("d")
-        tdg.add_task(lambda s, g: s + g, ins=["state", "g"], outs=["state"])
-        out = T.lower_tdg(tdg, donate_slots=("state",))({"state": torch.ones(4),
-                                                         "g": torch.ones(4)})
-        assert torch.equal(out["state"], torch.full((4,), 2.0))
+    @pytest.mark.parametrize("donate", [("state",), ("state", "g"), ("g",), ()])
+    def test_donation_slots(self, donate):
+        """Donation against the reference's ``_jit_with_donation``: the same
+        outputs; a donated slot keys its own interned entry; on the CPU the
+        region runs as it is, so the donated input is left alone (on the card
+        it becomes the graph's buffer: ``test_torch_cuda.py``)."""
+        T.clear_intern_cache()
+        graphs = {}
+        for mod in (J, T):
+            g = mod.TDG("d")
+            g.add_task(_add, ins=["state", "g"], outs=["state"])
+            g.add_task(_inc, ins=["g"], outs=["h"])
+            graphs[mod] = g
+        rng = np.random.default_rng(21)
+        state, g = rng.standard_normal(4).astype(np.float32), np.ones(4, np.float32)
+        want = J.lower_tdg(graphs[J], donate_slots=donate)(
+            {"state": jnp.asarray(state), "g": jnp.asarray(g)})
+        bufs = {"state": torch.from_numpy(state.copy()), "g": torch.from_numpy(g.copy())}
+        fn = T.lower_tdg(graphs[T], donate_slots=donate)
+        out = fn(dict(bufs))
+        for k in want:
+            np.testing.assert_allclose(out[k].numpy(), np.asarray(want[k]), rtol=2e-5,
+                                       atol=2e-5)
+        assert torch.equal(bufs["state"], torch.from_numpy(state))
+        slot_map = T.structure_signature(graphs[T])[1]
+        assert fn.graph_replay.donate == frozenset(slot_map[s] for s in donate)
+        T.lower_tdg(graphs[T])
+        assert T.intern_stats()["entries"] == (1 if not donate else 2)
         T.clear_intern_cache()
 
 

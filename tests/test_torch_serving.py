@@ -1,10 +1,14 @@
-"""The port's request-level RegionServer and serve entry point.
+"""The port's RegionServer and serve entry point.
 
 Three tenants of the reduced qwen2.5-3b decode step (JAX parameters
-carried across) go through the port's server: a coalesced batch must give
-what each request gives alone, the shared params module must be broadcast
-rather than stacked, and the tokens the server generates must equal JAX
-``greedy_decode`` on the same parameters and prompts.
+carried across) go through the port's server: through the request-level
+dispatcher (``continuous=False``) a coalesced batch must give what each
+request gives alone and the shared params module must be broadcast rather
+than stacked; under both schedulers (request-level and the continuous
+default) the tokens the server generates must equal JAX ``greedy_decode``
+on the same parameters and prompts. The continuous scheduler and QoS are
+held to the JAX server in ``test_torch_continuous.py`` and
+``test_torch_qos.py``.
 """
 import threading
 
@@ -25,7 +29,6 @@ from repro_torch.core import TDG, clear_intern_cache  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import LatencyReservoir, RegionServer, percentile  # noqa: E402
-from repro_torch.serving.server import bucket_for  # noqa: E402
 from repro_torch.training import make_serve_step  # noqa: E402
 
 MAX_LEN = 24
@@ -67,7 +70,7 @@ def test_coalesced_batch_equals_single_requests(model):
     _, _, cfg, params = model
     clear_intern_cache()
     decode = make_serve_step(cfg)
-    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False, continuous=False)
     _decode_tenants(server, decode, 3)
     assert server.stats()["intern"]["hits"] == 2       # tenants 2, 3 reuse tenant 1
     reqs = [_request(params, *_prefill(cfg, params, i)) for i in range(3)]
@@ -91,7 +94,7 @@ def test_coalesced_batch_equals_single_requests(model):
 def test_shared_params_are_broadcast_not_stacked(model):
     _, _, cfg, params = model
     decode = make_serve_step(cfg)
-    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False, continuous=False)
     _decode_tenants(server, decode, 2)
     futures = [server.submit(f"t{i}", _request(params, *_prefill(cfg, params, i)))
                for i in range(2)]
@@ -105,11 +108,13 @@ def test_shared_params_are_broadcast_not_stacked(model):
     assert server.stats()["pool"]["entries"] == 1
 
 
-def test_server_tokens_equal_jax_greedy_decode(model):
+@pytest.mark.parametrize("continuous", [False, None], ids=["request-level", "continuous"])
+def test_server_tokens_equal_jax_greedy_decode(model, continuous):
     jcfg, jparams, cfg, params = model
     gen, tenants = 6, 3
     decode = make_serve_step(cfg)
-    server = RegionServer(max_batch=tenants, max_wait_ms=5.0)
+    server = RegionServer(max_batch=tenants, max_wait_ms=5.0, continuous=continuous)
+    assert server.continuous is (continuous is None)
     _decode_tenants(server, decode, tenants)
     outs, errors = {}, []
 
@@ -144,7 +149,7 @@ def test_unbatchable_payload_falls_back_to_serial():
     def step(x):
         return x + float(x.sum())       # host sync: refused under vmap
 
-    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False, continuous=False)
     for i in range(2):
         g = TDG(f"r{i}")
         g.add_task(step, inouts=["x"])
@@ -159,7 +164,7 @@ def test_unbatchable_payload_falls_back_to_serial():
 
 
 def test_different_payloads_never_share_a_batch():
-    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False)
+    server = RegionServer(max_batch=4, max_wait_ms=0, autostart=False, continuous=False)
     for name, fn in (("a", lambda x: x + 1), ("b", lambda x: x + 2)):
         g = TDG(name)
         g.add_task(fn, inouts=["x"])
@@ -175,9 +180,8 @@ def test_different_payloads_never_share_a_batch():
 
 
 def test_admission_errors():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RegionServer(continuous=True)
-    server = RegionServer()
+    assert RegionServer(autostart=False).continuous is True     # the reference's default
+    server = RegionServer(continuous=False)
     g = TDG("one")
     g.add_task(lambda x: x, inouts=["x"])
     server.register_tenant("one", g)
@@ -194,7 +198,9 @@ def test_admission_errors():
 
 def test_bucket_ladder_matches_reference_static_ladder():
     ladder = BucketTuner(8, adaptive=False)
-    assert [bucket_for(n) for n in range(1, 20)] == [ladder.bucket_for(n) for n in range(1, 20)]
+    server = RegionServer(max_batch=8, adaptive=False, autostart=False)
+    assert [server._bucket_and_pad(n)[0] for n in range(2, 20)] == \
+        [ladder.bucket_for(n) for n in range(2, 20)]
 
 
 def test_latency_percentiles():
@@ -230,3 +236,96 @@ def test_serve_cli_without_card_raises():
         pytest.skip("a CUDA card is present: the default device works")
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--smoke"])
+
+
+def test_warm_pool_matches_reference_and_releases_what_leaves():
+    from repro.serving.pool import PoolEntry as JEntry
+    from repro.serving.pool import WarmPool as JPool
+    from repro_torch.serving import PoolEntry, WarmPool
+
+    released = []
+
+    class Replay:
+        def __init__(self, name):
+            self.name = name
+
+        def release(self):
+            released.append(self.name)
+
+    pools = (JPool(capacity=3), WarmPool(capacity=3))
+    for pool, entry in zip(pools, (JEntry, PoolEntry)):
+        for i in range(4):
+            pool.put((i,), entry("batched" if i % 2 else "single", Replay(i)))
+        pool.get((1,))
+        pool.get((9,))
+        pool.get((3,))
+        pool.get((3,))
+        assert pool.peek((2,)) is not None and pool.peek((0,)) is None
+        assert len(pool) == 3
+        assert pool.invalidate(lambda k, e: e.kind == "batched") == 2
+    jstats, tstats = (p.stats() for p in pools)
+    assert {k: v for k, v in tstats.items()} == {k: v for k, v in jstats.items()
+                                                 if k != "hydrations"}
+    assert tstats["hot"] == [{"kind": "single", "hits": 0}]
+    assert released == [0, 1, 3]          # evicted, then invalidated (the port's only)
+    pools[1].clear()
+    assert len(pools[1]) == 0 and released == [0, 1, 3, 2]
+    assert pools[1].stats()["misses"] == 0
+
+
+def test_serve_cli_qos_and_trace_flags_on_cpu(tmp_path, capsys):
+    trace = tmp_path / "trace.json"
+    assert serve.main(["--smoke", "--device", "cpu", "--server", "--tenants", "3", "--gen",
+                       "3", "--prompt-len", "8", "--batch", "2", "--tiers", "0,1",
+                       "--trace-out", str(trace)]) == 0
+    out = capsys.readouterr().out
+    assert "tier 0: n 4" in out and "tier 1: n 2" in out and "trace:" in out
+    doc = __import__("json").loads(trace.read_text())
+    assert doc["summary"]["steps"] >= 2 and {"0", "1"} <= set().union(
+        *(r["tiers"] for r in doc["records"]))
+    assert serve.main(["--smoke", "--device", "cpu", "--server", "--request-level",
+                       "--tenants", "2", "--gen", "3", "--prompt-len", "8",
+                       "--batch", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "0 fallbacks" in out and "tier 0" not in out
+
+
+def test_serve_lm_example_on_cpu(capsys):
+    from repro_torch.examples import serve_lm
+    assert serve_lm.main(["--device", "cpu", "--server", "--tenants", "2", "--gen", "3",
+                          "--prompt-len", "8", "--batch", "2"]) == 0
+    assert "0 fallbacks" in capsys.readouterr().out
+
+
+def test_costreport_matches_reference():
+    from repro.launch import costreport as jreport
+    from repro_torch.launch import costreport as treport
+    occupancies = [5] * 40 + [12] * 30 + [3] * 10 + [16] * 5 + [1] * 7
+    assert treport.bucket_report(occupancies, 16) == jreport.bucket_report(occupancies, 16)
+    rep = treport.bucket_report(occupancies, 16)
+    assert rep["fitted_boundaries"] == [3, 5, 12, 16] and rep["pad_lanes_fitted"] == 0
+    outcomes = [treport.structure_report(tdg, bufs)["decisions"][0]["batcher"]
+                for tdg, bufs in treport._demo_tdgs()]
+    assert outcomes == ["vmap", "map", "unrolled"]
+    # the same policy, thresholds and decision for a compute-bound class
+    tdg, bufs = treport._demo_tdgs()[0]
+    jtdg = jax_tdg_like(tdg)
+    jbufs = {k: jax.ShapeDtypeStruct(tuple(v.shape), jnp.float32) for k, v in bufs.items()}
+    jrep, trep = jreport.structure_report(jtdg, jbufs), treport.structure_report(tdg, bufs)
+    assert trep["policy"] == jrep["policy"]
+    assert [(d["wave"], d["size"], d["batcher"]) for d in trep["decisions"]] == \
+        [(d["wave"], d["size"], d["batcher"]) for d in jrep["decisions"]]
+    assert treport.main([]) == 0
+
+
+def jax_tdg_like(tdg):
+    """The reference's TDG of the same tasks, each payload a matmul."""
+    from repro.core import TDG as JTDG
+    out = JTDG(tdg.region)
+    for t in tdg.tasks:
+        out.add_task(_jmm, ins=list(t.ins), outs=list(t.outs))
+    return out
+
+
+def _jmm(a, w):
+    return a @ w

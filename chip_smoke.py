@@ -41,7 +41,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one-element ``zero_()``) timed the same way, flash attention at the
    dense and MoE prefill shapes, grouped matmul at prefill and decode, SSD
    at the mamba2 shape and its bound both ways (f32 CUDA cores, and bytes
-   against 3xTF32 tensor-core operations).
+   against 3xTF32 tensor-core operations). Then each custom op's backward
+   rule (a plain-torch function, ``kernels/ref.py``) at the training
+   path's shapes: the kernel's forward plus the rule's backward through
+   the public wrapper against the plain forward plus autograd, every
+   gradient within TOL (f32 2e-5, bf16 2e-2) of its largest magnitude
+   (RMSNorm (4, 512, 2048) bf16 with and without a residual and at d 1024;
+   attention at the dense shape and in f32 with a window and a decode
+   offset; grouped matmul at the MoE prefill shape; SSD at mamba2's); the
+   rule alone is timed beside its bound and goes into the op's entry.
 3. Paths, one model at a time (the previous one freed first), two paths a
    model, each driven the same way: 4 tenants each prefill batch 4 x 512
    tokens, then 8 greedy decode steps each from 4 threads through the
@@ -112,14 +120,48 @@ Phases, each of which raises on failure (the script then exits non-zero):
    record, eager (median of 5), captured and uncaptured replay (median of
    5) times, and eager's ``ExecStats``. Launch counts are set to 0 just
    before the phase and read just after.
+6. Training (f32 params, bf16 compute, batch 4 x 512, data from the
+   reference's ``SyntheticLM`` with seed 0, weights from seed 0), one model
+   at a time; launch counts set to 0 just before the phase and read just
+   after (RMSNorm, flash attention and SSD must launch):
+   a. the fused step (``make_train_step``: forward, backward through the
+      rules, clipping, AdamW in place; ``remat="full"``) of qwen2.5-3b, 36
+      layers, for 3 steps with the kernels, then 1 on the plain versions
+      from the same weights: their first steps' loss and grad norm within
+      2e-2; step ms (median of the last 2), tokens/s and peak memory;
+      one more step under the profiler gives the card's idle share and the
+      kernels that take its time;
+   b. the same for mamba2-370m, 48 layers (the SSD forward kernel and rule);
+   c. the per-layer train region (``make_tdg_train_region``) of qwen2.5-3b
+      at full width and 8 of 36 layers: record, ``EagerExecutor``,
+      uncaptured and captured replay (median of 5 each); captured equal to
+      uncaptured within 1e-6 of the largest magnitude, all equal to eager
+      (loss 1e-5; params atol 1e-3, rtol 5e-3); 3 captured replays that pass
+      the donated outputs back copy nothing, advance the optimizer step to
+      3 on the card and capture once; a profiler trace of one replay shows
+      backward kernels and the RMSNorm and attention kernels. The gap of
+      the region's loss to the fused step's (the region's CE spans the
+      unmasked pad columns, as the reference's does) is printed, and at
+      vocabulary 152064 (a multiple of 256) the region is held to the fused
+      step at the reference's tolerances (loss 1e-4; params atol 1e-3, rtol
+      5e-3). AdamW runs at lr 1e-4 here: its first step moves each weight
+      by about +-lr, so an entry whose bf16 gradient is near 0 may move
+      either way in two orchestrations (2 lr), which stays inside atol;
+   d. the launcher (``launch.train``'s ``run``, which ``main`` calls) on
+      mamba2-370m for 20 steps at lr 1e-3 (at the default 3e-3 its loss
+      rises; see LAUNCHER_LR), a checkpoint every 10: the loss must fall,
+      and the step-20 checkpoint restored must equal the live state.
+   At most 8 GiB may stay reserved after the phase.
 
 In the ``{"kernels": [...]}`` line, ``launches_by_path`` holds each path's
 counts and ``decode_round_replay_launches`` the launches of the kernel's
 symbol in the profiled decode round's trace (graph replays, which the
 counts do not see).
 
-The last lines are one ``{"kernels": [...]}`` JSON object, one
-``{"taskgraph": [...]}`` object and then ``{"ok": true, "device": {...}}``.
+The last lines are one ``{"kernels": [...]}`` JSON object (with each op's
+backward rule: ``backward_ms``, ``backward_bound_ms``, ...), one
+``{"taskgraph": [...]}`` object, one ``{"training": {...}}`` object and then
+``{"ok": true, "device": {...}}``.
 Needs a CUDA card and the repository beside this file.
 """
 from __future__ import annotations
@@ -1396,6 +1438,417 @@ def run_taskgraph(kernels: dict, card: str, runs=TASKGRAPH_RUNS) -> list:
     return out
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
+TDG_LAYERS = 8            # of qwen2.5-3b's 36: the region holds ~8 copies of its params
+TDG_VOCAB = 152064        # qwen2.5-3b's padded vocabulary: a multiple of 256
+TDG_LR = 1e-4             # AdamW's first step moves each weight by about +-lr
+# The launcher's lr. At the reference's default 3e-3 (2 warm-up steps of
+# 20) mamba2-370m's loss rose (11.222 -> 11.241, first 5 against last 5):
+# each early AdamW step moves every weight by about +-lr, a tenth of its
+# init scale (1024^-1/2 = 0.031); at 1e-3 it fell (11.216 -> 11.154).
+LAUNCHER_LR = "1e-3"
+FUSED_REL = 2e-2          # first step's loss and grad norm, kernels vs plain
+REGION_LOSS_REL = 1e-5    # region (captured, uncaptured) vs eager
+CAPTURED_REL = 1e-6       # captured vs uncaptured
+REF_LOSS_RTOL, REF_ATOL, REF_RTOL = 1e-4, 1e-3, 5e-3   # the reference's test tolerances
+
+
+def _share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest difference as a share of the largest magnitude of ``want``."""
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff / max(want.float().abs().max().item(), 1e-30)
+
+
+def _grads_of(fn, inputs, cots):
+    xs = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(outs, xs, cots)
+
+
+def check_rules(rms, fa, gmm, ssd, ref, gen) -> dict:
+    """Each custom op's backward rule at the training path's shapes: the
+    kernel's forward plus the rule's backward (the public wrapper under
+    autograd) against the plain forward plus autograd, each gradient within
+    TOL of its largest magnitude; then the rule alone timed beside its bound.
+    Returns the entries' backward fields by kernel entry name."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def case(label, kernel_fn, plain_fn, inputs, cots, dtype):
+        got = _grads_of(kernel_fn, inputs, cots)
+        want = _grads_of(plain_fn, inputs, cots)
+        err = max(_share(g, w) for g, w in zip(got, want) if w is not None)
+        if not all(torch.isfinite(g.float()).all() for g in got) or err > TOL[dtype]:
+            raise AssertionError(f"{label}: the rule's gradients differ from plain autograd by "
+                                 f"{err:.3g} of the largest magnitude (limit {TOL[dtype]})")
+        return err
+
+    def record(name, label, err, dtype, rule, nbytes, flops, flop_dtype, shape):
+        ms = time_ms(rule, flush=flush)
+        b_ms, b_by = bound(nbytes, flops, flop_dtype)
+        log(f"  {label}: rule {ms:.4f} ms ({b_ms / ms:.1%} of the {b_by} bound "
+            f"{b_ms:.4f} ms); max err {err:.3g} of the largest magnitude")
+        out[name] = {"backward_route": "plain-torch rule", "backward_ms": ms,
+                     "backward_bound_ms": b_ms, "backward_bound_by": b_by,
+                     "backward_max_err": err, "backward_tolerance": TOL[dtype],
+                     "backward_shape": shape}
+
+    log("backward rules (kernel forward + rule vs plain forward + autograd):")
+    # RMSNorm: the dense block's shape, with a residual, and mamba2's
+    x = randn(TRAIN_BATCH, TRAIN_SEQ, 2048, dtype=bf16, gen=gen)
+    w = randn(2048, dtype=f32, gen=gen)
+    gy = randn(*x.shape, dtype=bf16, gen=gen)
+    err = case("rmsnorm rule (4, 512, 2048) bf16", lambda a, b: rms.rmsnorm(a, b),
+               lambda a, b: ref.rmsnorm_ref(a, b), [x, w], [gy], bf16)
+    r = randn(*x.shape, dtype=bf16, gen=gen)
+    err = max(err, case("rmsnorm rule with residual", lambda a, b, c: rms.rmsnorm(a, b, residual=c),
+                        lambda a, b, c: ref.rmsnorm_ref(a, b, residual=c), [x, w, r], [gy], bf16))
+    xm, wm = randn(TRAIN_BATCH, TRAIN_SEQ, 1024, dtype=bf16, gen=gen), randn(1024, dtype=f32, gen=gen)
+    err = max(err, case("rmsnorm rule (4, 512, 1024) bf16", lambda a, b: rms.rmsnorm(a, b),
+                        lambda a, b: ref.rmsnorm_ref(a, b), [xm, wm],
+                        [randn(*xm.shape, dtype=bf16, gen=gen)], bf16))
+    record("rmsnorm", "rmsnorm (4, 512, 2048) bf16", err, bf16,
+           lambda: ref.rmsnorm_bwd_ref(x, w, gy), 2 * 3 * x.numel() + 4 * 2 * w.numel(),
+           10 * x.numel(), f32, [TRAIN_BATCH, TRAIN_SEQ, 2048])
+
+    # attention: the dense prefill shape (causal GQA), and an f32 case with
+    # a window and a decode offset
+    B, S, Hq, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128
+    q = randn(B, S, Hq, D, dtype=bf16, gen=gen)
+    k, v = randn(B, S, Hkv, D, dtype=bf16, gen=gen), randn(B, S, Hkv, D, dtype=bf16, gen=gen)
+    go = randn(B, S, Hq, D, dtype=bf16, gen=gen)
+    err = case("attention rule (4, 512, 16/2, 128) bf16 causal",
+               lambda a, b, c: fa.flash_attention(a, b, c),
+               lambda a, b, c: ref.attention_ref(a, b, c), [q, k, v], [go], bf16)
+    q2, k2, v2 = (randn(2, 96, 8, 64, dtype=f32, gen=gen), randn(2, 160, 2, 64, dtype=f32, gen=gen),
+                  randn(2, 160, 2, 64, dtype=f32, gen=gen))
+    kw = dict(window=48, q_offset=64)
+    case("attention rule f32 window 48, q_offset 64",
+         lambda a, b, c: fa.flash_attention(a, b, c, **kw),
+         lambda a, b, c: ref.attention_ref(a, b, c, **kw), [q2, k2, v2],
+         [randn(2, 96, 8, 64, dtype=f32, gen=gen)], f32)
+    pairs = S * (S + 1) // 2                        # causal: the pairs the data needs
+    record("flash_attention", "flash attention (4, 512, 16/2, 128) bf16 causal", err, bf16,
+           lambda: ref.attention_bwd_ref(q, k, v, go),
+           2 * 2 * (q.numel() + k.numel() + v.numel() + go.numel()),
+           5 * 2 * B * Hq * D * pairs, bf16, [B, S, Hq, Hkv, D])
+
+    # grouped matmul: the MoE up projection at prefill capacity
+    E, C, d, f = 128, 160, 2048, 768
+    xg, wg = randn(E, C, d, dtype=bf16, gen=gen, scale=0.3), randn(E, d, f, dtype=bf16, gen=gen, scale=0.3)
+    gg = randn(E, C, f, dtype=bf16, gen=gen, scale=0.3)
+    err = case("grouped_matmul rule (128, 160, 2048) @ (128, 2048, 768) bf16",
+               lambda a, b: gmm.grouped_matmul(a, b), lambda a, b: ref.grouped_matmul_ref(a, b),
+               [xg, wg], [gg], bf16)
+    record("grouped_matmul", "grouped matmul (128, 160, 2048) @ (128, 2048, 768) bf16", err, bf16,
+           lambda: ref.grouped_matmul_bwd_ref(xg, wg, gg),
+           2 * 2 * (xg.numel() + wg.numel() + gg.numel()), 4 * E * C * d * f, bf16, [E, C, d, f])
+
+    # SSD intra-chunk: mamba2's (BH 128, S 512, P 64; BG 4, N 128; chunk 128)
+    BH, BG, P, N, Q = TRAIN_BATCH * 32, TRAIN_BATCH, 64, 128, 128
+    xs = randn(BH, TRAIN_SEQ, P, dtype=f32, gen=gen, scale=0.1)
+    bb, cc = randn(BG, TRAIN_SEQ, N, dtype=f32, gen=gen, scale=0.5), randn(BG, TRAIN_SEQ, N, dtype=f32, gen=gen, scale=0.5)
+    lda = -randn(BH, TRAIN_SEQ, dtype=f32, gen=gen).abs() * 0.1
+    nc = TRAIN_SEQ // Q
+    cots = [randn(BH, TRAIN_SEQ, P, dtype=f32, gen=gen), randn(BH, nc, N, P, dtype=f32, gen=gen),
+            randn(BH, nc, 1, 1, dtype=f32, gen=gen)]
+    err = case("ssd_intra_chunk rule (mamba2 shape) f32",
+               lambda *a: ssd.ssd_intra_chunk(*a, Q), lambda *a: ref.ssd_intra_chunk_ref(*a, Q),
+               [xs, bb, cc, lda], cots, f32)
+    cells = BH * nc
+    record("ssd_intra_chunk", "ssd_intra_chunk (BH 128, S 512, P 64, N 128, Q 128) f32", err, f32,
+           lambda: ref.ssd_intra_chunk_bwd_ref(xs, bb, cc, lda, Q, *cots),
+           4 * (2 * (xs.numel() + 2 * bb.numel() + lda.numel()) + sum(c.numel() for c in cots)),
+           cells * (Q * Q * (4 * P + 6 * N) + 4 * Q * N * P), f32, [BH, TRAIN_SEQ, P, N, Q])
+    return out
+
+
+def _train_data(vocab: int, step: int) -> dict:
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    ds = SyntheticLM(DataConfig(vocab_size=vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                seed=0))
+    return {"tokens": torch.from_numpy(ds.batch(step)["tokens"]).cuda()}
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fused_steps(cfg, optimizer, steps: int, mode: str, registry, profile: bool = False) -> dict:
+    """``steps`` fused train steps (make_train_step, params and moments in
+    place) from the seed-0 weights under kernel mode ``mode``; the step
+    times (host clock, synchronized), losses, grad norms and peak memory;
+    with ``profile``, one more step under the profiler (its idle share)."""
+    from repro_torch.models import model as M
+    from repro_torch.training import make_train_step
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.params_of(init_model(cfg))
+    state = optimizer.init(params)
+    step = make_train_step(cfg, optimizer)
+    times, losses, gnorms = [], [], []
+    with registry.kernel_mode_scope(mode):
+        for i in range(steps):
+            batch = _train_data(cfg.vocab_size, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            gnorms.append(m["grad_norm"].item())
+        idle = None
+        if profile:
+            batch = _train_data(cfg.vocab_size, steps)
+            idle = device_profile(f"train step {cfg.name}", lambda: step(params, state, batch))["idle"]
+            steps += 1
+    if not all(map(torch.isfinite, map(torch.tensor, losses + gnorms))):
+        raise AssertionError(f"{cfg.name} {mode}: loss or grad norm not finite")
+    if int(state["step"]) != steps:
+        raise AssertionError(f"{cfg.name}: opt_state step {int(state['step'])} after {steps}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, state
+    _free()
+    return {"step_ms": times, "loss": losses, "grad_norm": gnorms, "peak_gib": peak,
+            "idle": idle}
+
+
+def train_fused_model(arch: str, registry, card: str) -> dict:
+    """One model at full width and depth: TRAIN_STEPS steps with the kernels,
+    then one on the plain versions from the same weights; their first
+    steps' loss and grad norm must agree within FUSED_REL."""
+    from repro_torch.launch import train as LT
+
+    cfg, optimizer = LT.build(arch, False, TRAIN_SEQ, TRAIN_BATCH, 100, 3e-3, "auto")
+    kern = fused_steps(cfg, optimizer, TRAIN_STEPS, "auto", registry, profile=True)
+    plain = fused_steps(cfg, optimizer, 1, "ref", registry)
+    gaps = {k: abs(kern[k][0] - plain[k][0]) / abs(plain[k][0]) for k in ("loss", "grad_norm")}
+    ms = statistics.median(kern["step_ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train {arch} ({cfg.num_layers} layers, remat {cfg.remat}, f32 params, "
+        f"{cfg.dtype} compute, batch {TRAIN_BATCH} x {TRAIN_SEQ}): step {ms:.1f} ms (median of "
+        f"the last {TRAIN_STEPS - 1}; all {[round(t, 1) for t in kern['step_ms']]}), "
+        f"{tokens / ms * 1e3:.0f} tokens/s, peak {kern['peak_gib']:.2f} GiB, idle share of a "
+        f"profiled step {kern['idle']}; plain step "
+        f"{plain['step_ms'][0]:.1f} ms, peak {plain['peak_gib']:.2f} GiB; losses "
+        f"{[round(x, 4) for x in kern['loss']]}; first step kernels vs plain: loss "
+        f"{kern['loss'][0]:.6f} / {plain['loss'][0]:.6f}, grad norm {kern['grad_norm'][0]:.6f}"
+        f" / {plain['grad_norm'][0]:.6f}, relative gaps {gaps} (limit {FUSED_REL}) ({card})")
+    if max(gaps.values()) > FUSED_REL:
+        raise AssertionError(f"{arch}: kernel and plain first steps differ: {gaps}")
+    return {"arch": arch, "layers": cfg.num_layers, "step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+            "peak_gib": kern["peak_gib"], "idle": kern["idle"], "plain_step_ms": plain["step_ms"][0],
+            "losses": kern["loss"], "first_step_gaps": gaps, "all_step_ms": kern["step_ms"]}
+
+
+def _params_close(label: str, got: dict, want: dict, atol: float, rtol: float) -> float:
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].float()
+        w = w.float()
+        worst = max(worst, (g - w).abs().max().item())
+        if not torch.allclose(g, w, atol=atol, rtol=rtol):
+            bad = ((g - w).abs() > atol + rtol * w.abs()).sum().item()
+            raise AssertionError(f"{label}: params {k} differ beyond atol {atol}, rtol {rtol} "
+                                 f"({bad} of {w.numel()}; max abs {(g - w).abs().max().item():.3g})")
+    return worst
+
+
+def train_region(kernels: dict, registry, card: str) -> dict:
+    """The paper's per-layer train region (make_tdg_train_region) on
+    qwen2.5-3b at full width, TDG_LAYERS layers: record, EagerExecutor,
+    uncaptured replay, captured replay (median of REPS each after the first)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EagerExecutor, lower, lower_tdg, reset_registry
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.training import make_tdg_train_region, make_train_step
+
+    outs = ("params", "opt_state", "loss")
+
+    def keep(out):   # what the comparisons need: params and loss
+        return {"params": out["params"], "loss": out["loss"]}
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=TDG_LAYERS)
+    opt = adamw(TDG_LR)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    p0 = M.params_of(init_model(cfg))
+    s0 = opt.init(p0)
+    tokens = _train_data(cfg.vocab_size, 0)["tokens"]
+    bufs = {"params": p0, "opt_state": s0, "tokens": tokens}
+    region = make_tdg_train_region(cfg, opt, name="chip_smoke tdg train")
+
+    def record():
+        region.tdg = None               # the next call records again
+        return keep(region(**bufs))
+
+    rec_ms, rec = _median_ms(record)
+    n = cfg.num_layers
+    if region.tdg.num_tasks != 2 * n + 5:
+        raise AssertionError(f"train region: {region.tdg.num_tasks} tasks, not {2 * n + 5}")
+    eager = EagerExecutor(region.tdg, n_workers=4)
+    eager_ms, eag = _median_ms(lambda: keep(eager.run(dict(bufs), outputs=list(outs))))
+    unc = lower_tdg(region.tdg, jit=False, donate_slots=("params", "opt_state"), outputs=outs)
+    unc_first_ms, _ = _median_ms(lambda: keep(unc(dict(bufs))), reps=1)
+    unc_ms, unc_out = _median_ms(lambda: keep(unc(dict(bufs))))
+
+    # captured: donated clones of p0 / s0; the first call warms up, captures, replays
+    p_c, s_c = clone(p0), clone(s0)
+    before = read_counts(kernels)
+    capture_ms, cap = _median_ms(lambda: region(params=p_c, opt_state=s_c, tokens=tokens), reps=1)
+    at_capture = read_counts(kernels)
+    graph = next(iter(region._replay_cache.values())).graph_replay
+    copied = [k for k in p_c if cap["params"][k] is not p_c[k]]
+    if copied:
+        raise AssertionError(f"captured region returned copies of donated params: {copied[:3]}")
+    cap_vs_unc = max(_share(cap["loss"], unc_out["loss"]),
+                     max(_share(cap["params"][k], unc_out["params"][k]) for k in p_c))
+    if cap_vs_unc > CAPTURED_REL:
+        raise AssertionError(f"captured region differs from uncaptured by {cap_vs_unc:.3g}")
+    eager_gap = {label: abs(o["loss"].item() - eag["loss"].item()) / abs(eag["loss"].item())
+                 for label, o in (("record", rec), ("uncaptured", unc_out), ("captured", cap))}
+    if max(eager_gap.values()) > REGION_LOSS_REL:
+        raise AssertionError(f"train region loss vs eager: {eager_gap}")
+    param_gap = max(_params_close(f"region {label} vs eager", o["params"], eag["params"],
+                                  REF_ATOL, REF_RTOL)
+                    for label, o in (("record", rec), ("uncaptured", unc_out), ("captured", cap)))
+    # pass the donated outputs back: the step advances on the card, one capture
+    p_c, s_c = cap["params"], cap["opt_state"]
+    for _ in range(2):
+        out = region(params=p_c, opt_state=s_c, tokens=tokens)
+        if out["params"]["embed.table"] is not p_c["embed.table"] or out["opt_state"]["step"] is not s_c["step"]:
+            raise AssertionError("a replay fed its own donated outputs copied them")
+        p_c, s_c = out["params"], out["opt_state"]
+    steps_done = int(s_c["step"])
+    if steps_done != 3 or graph.captures != 1:
+        raise AssertionError(f"after 3 captured replays: opt_state step {steps_done}, "
+                             f"{graph.captures} captures (want 3 and 1)")
+    after3 = read_counts(kernels)
+    cap_ms, _ = _median_ms(lambda: region(params=p_c, opt_state=s_c, tokens=tokens))
+    in_replays = {k: v - after3[k] for k, v in read_counts(kernels).items() if v != after3[k]}
+    if in_replays:
+        raise AssertionError(f"a wrapper counted launches during graph replays: {in_replays}")
+    names = _graph_kernel_names(lambda: region(params=p_c, opt_state=s_c, tokens=tokens))
+    backward = sorted(n_ for n_ in names if "backward" in n_)
+    need = [sym for sym in ("rmsnorm_sm90_kernel", "fa_sm90_kernel")
+            if not any(sym in n_ for n_ in names)]
+    if not backward or need:
+        raise AssertionError(f"a trace of one captured replay lacks backward kernels "
+                             f"({len(backward)}) or {need}: {sorted(names)[:20]}")
+    in_capture = {k: at_capture[k] - before[k] for k in before if at_capture[k] != before[k]}
+    del p_c, s_c, cap, out
+    region._replay_cache.clear()
+    lower.clear_intern_cache()
+    _free()
+
+    # region vs the fused step: at this vocabulary the region's CE also
+    # spans the pad columns (the reference's head_loss does not mask them)
+    fused = make_train_step(cfg, opt)
+    p_f, s_f, m_f = fused(clone(p0), clone(s0), {"tokens": tokens})
+    pad_gap = eag["loss"].item() - m_f["ce"].item()
+    del p_f, s_f, p0, s0, bufs, rec, eag, unc_out
+    reset_registry()
+    _free()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # ... and at a vocabulary with no pad columns, held to the reference's tolerances
+    cfg_v = dataclasses.replace(cfg, vocab_size=TDG_VOCAB)
+    p0 = M.params_of(init_model(cfg_v))
+    s0 = opt.init(p0)
+    tokens_v = _train_data(cfg_v.vocab_size, 0)["tokens"]
+    region_v = make_tdg_train_region(cfg_v, opt, name="chip_smoke tdg train vocab")
+    rv = keep(region_v(params=p0, opt_state=s0, tokens=tokens_v))
+    p_f, s_f, m_f = make_train_step(cfg_v, opt)(clone(p0), clone(s0), {"tokens": tokens_v})
+    fv_loss_gap = abs(rv["loss"].item() - m_f["ce"].item()) / abs(m_f["ce"].item())
+    if fv_loss_gap > REF_LOSS_RTOL:
+        raise AssertionError(f"region vs fused at vocab {TDG_VOCAB}: loss gap {fv_loss_gap:.3g}")
+    fv_param = _params_close(f"region vs fused at vocab {TDG_VOCAB}", rv["params"], p_f,
+                             REF_ATOL, REF_RTOL)
+    del p0, s0, rv, p_f, s_f, region_v
+    reset_registry()
+    _free()
+
+    log(f"train region qwen2.5-3b at {n} of 36 layers (full width, f32 params, bf16 compute, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {TDG_LR}): {region.tdg.num_tasks} tasks; "
+        f"record {rec_ms:.1f} ms (median of {REPS}), eager {eager_ms:.1f} ms, uncaptured {unc_ms:.1f} ms (first "
+        f"{unc_first_ms:.1f} ms), captured {cap_ms:.1f} ms (median of {REPS}; first call with "
+        f"capture {capture_ms:.1f} ms, {graph.captures} capture for 3 + {REPS + 1} replays, "
+        f"opt_state step {steps_done} after 3); captured vs uncaptured {cap_vs_unc:.3g}; loss vs "
+        f"eager {eager_gap}; params vs eager max abs {param_gap:.3g}; launches in warm-up + "
+        f"capture {in_capture}, 0 in replays; {len(backward)} backward kernels in one replay's "
+        f"trace (e.g. {[b[:70] for b in backward[:3]]}); region - fused loss at vocab {cfg.vocab_size} (pad columns "
+        f"unmasked in the region) {pad_gap:.6f}; at vocab {TDG_VOCAB}: loss gap {fv_loss_gap:.3g}, "
+        f"params max abs {fv_param:.3g}; peak {peak:.2f} GiB ({card})")
+    return {"layers": n, "tasks": 2 * n + 5, "record_ms": rec_ms, "eager_ms": eager_ms,
+            "uncaptured_ms": unc_ms, "captured_ms": cap_ms, "capture_ms": capture_ms,
+            "captures": graph.captures, "captured_vs_uncaptured": cap_vs_unc,
+            "loss_vs_eager": eager_gap, "pad_column_loss_gap": pad_gap,
+            "vocab_multiple_loss_gap": fv_loss_gap, "vocab_multiple_param_max_abs": fv_param,
+            "backward_kernels_in_trace": len(backward), "peak_gib": peak}
+
+
+def train_launcher() -> dict:
+    """The training launcher on mamba2-370m for 20 steps with a checkpoint
+    every 10 (its run() is main()'s body and asserts the loss fell); the
+    latest checkpoint restored must equal the live state."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as LT
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        state, report, losses, ckpt = LT.run(
+            ["--arch", "mamba2-370m", "--steps", "20", "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ), "--ckpt-every", "10", "--ckpt-dir", ckpt_dir, "--lr", LAUNCHER_LR])
+        wall = time.perf_counter() - t0
+        live = {"params": state.params, "opt_state": state.opt_state}
+        restored, step = ckpt.restore({**live, "step": 0})
+        if step != 20 or int(restored["step"]) != 20:
+            raise AssertionError(f"latest checkpoint is step {step}, not 20")
+        differ = [k for k in live["params"] if not torch.equal(restored["params"][k], live["params"][k])]
+        differ += [f"{m}/{k}" for m in ("mu", "nu") for k in live["opt_state"][m]
+                   if not torch.equal(restored["opt_state"][m][k], live["opt_state"][m][k])]
+        if differ or not torch.equal(restored["opt_state"]["step"], live["opt_state"]["step"]):
+            raise AssertionError(f"restored checkpoint differs from the live state: {differ[:3]}")
+        log(f"train launcher mamba2-370m (lr {LAUNCHER_LR}): 20 steps in {wall:.1f} s, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (first 5 mean {sum(losses[:5]) / 5:.4f}, last 5 mean "
+            f"{sum(losses[-5:]) / 5:.4f}); {report}; step-20 checkpoint restored equal")
+        del state, live, restored
+        return {"losses": losses, "report": report, "wall_s": wall}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        _free()
+
+
+def run_training(kernels: dict, registry, card: str) -> dict:
+    """The training path: fused steps of qwen2.5-3b (36 layers) and
+    mamba2-370m (48), the per-layer train region, and the launcher."""
+    t0 = time.perf_counter()
+    out = {"dense": train_fused_model("qwen2.5-3b", registry, card),
+           "mamba2": train_fused_model("mamba2-370m", registry, card),
+           "region": train_region(kernels, registry, card),
+           "launcher": train_launcher()}
+    _free()
+    reserved = torch.cuda.memory_reserved() / 2**30
+    log(f"training phase: {time.perf_counter() - t0:.1f} s; {reserved:.2f} GiB reserved after it")
+    if torch.cuda.memory_reserved() > RESERVED_LIMIT:
+        raise AssertionError("the training phase left more than 8 GiB reserved")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1436,7 +1889,11 @@ def main() -> int:
     t0 = time.perf_counter()
     entries = [check_rmsnorm(rms, ref, gen), *check_attention(fa, ref, gen),
                check_grouped_matmul(gmm, ref, gen), check_ssd(ssd, ref, gen)]
-    log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
+    rules = check_rules(rms, fa, gmm, ssd, ref, gen)
+    for e in entries:
+        if not e["name"].endswith("(first design)"):
+            e.update(rules[e["name"]])
+    log(f"phase 2 (kernels and their backward rules) took {time.perf_counter() - t0:.1f} s")
 
     kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm, "ssd": ssd}
     runs, replayed = {}, {}
@@ -1465,6 +1922,17 @@ def main() -> int:
     log(f"path taskgraph: {len(taskgraph)} runs in {time.perf_counter() - t0:.1f} s; "
         f"launches {runs['taskgraph']}")
 
+    # ---- the training path: counts zeroed just before, read just after
+    for mod in kernels.values():
+        mod.reset_launches()
+    training = run_training(kernels, registry, card)
+    runs["train"] = read_counts(kernels)
+    # ---- end of the training path
+    log(f"path train: launches {runs['train']}")
+    for kernel in ("rmsnorm_sm90", "flash_attention_sm90", "ssd_chunk_sm90"):
+        if not runs["train"][kernel] > 0:
+            raise AssertionError(f"{kernel} never launched on the training path")
+
     for e in entries:
         src = Path(e["source"]).stem
         e["launches_by_path"] = {label: counts[src] for label, counts in runs.items()}
@@ -1478,6 +1946,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s after the device check")
     log(json.dumps({"kernels": entries, "card": card}))
     log(json.dumps({"taskgraph": taskgraph, "card": card}))
+    log(json.dumps({"training": training, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """Model configuration: the subset of ``repro.configs.base`` that the ported
-families use (dense, MoE and SSM; swiglu MLPs, optional qk-norm).
+families use (dense, MoE and SSM; swiglu MLPs, optional qk-norm) and the
+training knobs ``remat`` and ``loss_chunk``.
 
 Configs are plain frozen dataclasses, as in the reference. Dtypes are kept
 as names (``"bfloat16"``, ``"float32"``) so a config stays hashable and
@@ -69,6 +70,10 @@ class ModelConfig:
     dtype: str = "bfloat16"                 # activation/compute dtype
     param_dtype: str = "float32"
 
+    # training
+    remat: Literal["none", "full", "dots"] = "full"   # per-block recompute
+    loss_chunk: int = 0                     # CE in chunks of tokens (0 = off)
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
@@ -121,7 +126,9 @@ def reduced(config: ModelConfig, **overrides) -> ModelConfig:
         ssm_state=min(config.ssm_state, 16) if config.ssm_state else 0,
         ssm_headdim=16,
         ssm_chunk=16,
+        remat="none",
         dtype="float32",
+        loss_chunk=0,
         name=config.name + "-smoke",
     )
     small.update(overrides)

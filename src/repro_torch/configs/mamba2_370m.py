@@ -21,4 +21,5 @@ CONFIG = ModelConfig(
     ssm_groups=1,
     ssm_chunk=128,
     tie_embeddings=True,
+    loss_chunk=2048,
 )

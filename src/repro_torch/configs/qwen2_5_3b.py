@@ -17,4 +17,5 @@ CONFIG = ModelConfig(
     qkv_bias=True,
     tie_embeddings=True,
     rope_theta=1000000.0,
+    loss_chunk=2048,
 )

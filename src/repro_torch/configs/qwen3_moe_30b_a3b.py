@@ -20,4 +20,5 @@ CONFIG = ModelConfig(
     top_k=8,
     moe_d_ff=768,
     rope_theta=1000000.0,
+    loss_chunk=2048,
 )

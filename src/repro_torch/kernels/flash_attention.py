@@ -4,7 +4,9 @@
 Replaces ``repro.kernels.flash_attention.flash_attention`` (see the source
 notes in the ``.cu`` files for the bounds and the designs). CUDA tensors
 launch a kernel through the ``repro_torch::flash_attention`` custom op,
-whose vmap rule folds the vmapped dim into the batch; CPU tensors take
+whose vmap rule folds the vmapped dim into the batch and whose autograd
+formula is the plain backward rule :func:`ref.attention_bwd_ref` (the
+probabilities recomputed from q, k and v); CPU tensors take
 :func:`ref.attention_ref`. Which kernel a CUDA call launches depends on its
 dtype and head dim alone (:func:`kernel_for`).
 """
@@ -17,7 +19,8 @@ import threading
 import torch
 
 from . import _build
-from .ref import attention_ref
+from ._autograd import differentiable, needs_grad
+from .ref import attention_bwd_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 SM90_HEAD_DIMS = (64, 128)
@@ -140,6 +143,22 @@ def _(info, in_dims, q, k, v, causal, window, chunk, scale, q_offset):
     return out.reshape(n, out.shape[0] // n, *out.shape[1:]), 0
 
 
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, chunk, scale, q_offset = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.masks = dict(causal=causal, window=None if window < 0 else window,
+                     chunk=chunk or None, scale=scale, q_offset=q_offset)
+
+
+def _backward(ctx, gout):
+    q, k, v = ctx.saved_tensors
+    gq, gk, gv = attention_bwd_ref(q, k, v, gout, **ctx.masks)
+    return gq, gk, gv, None, None, None, None, None
+
+
+_FlashAttention = differentiable(_flash_attention_cuda, _setup_context, _backward)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     chunk: int | None = None, scale: float | None = None,
@@ -149,5 +168,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window, chunk=chunk,
                              scale=scale, q_offset=q_offset)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return _flash_attention_cuda(q, k, v, causal, -1 if window is None else window,
-                                 0 if chunk is None else chunk, float(scale), q_offset)
+    op = _FlashAttention.apply if needs_grad(q, k, v) else _flash_attention_cuda
+    return op(q, k, v, causal, -1 if window is None else window,
+              0 if chunk is None else chunk, float(scale), q_offset)

@@ -3,7 +3,8 @@ and ``csrc/grouped_matmul.cu``.
 
 Replaces ``repro.kernels.moe_gmm.grouped_matmul`` (see the source notes in
 the ``.cu`` files for the bounds and the designs). CUDA tensors launch a
-kernel through the ``repro_torch::grouped_matmul`` custom op; CPU tensors
+kernel through the ``repro_torch::grouped_matmul`` custom op (its autograd
+formula: the plain rule :func:`ref.grouped_matmul_bwd_ref`); CPU tensors
 take :func:`ref.grouped_matmul_ref`. Which kernel a CUDA call launches
 depends on its dtype and shape alone (:func:`kernel_for`). Under
 ``torch.func.vmap`` with shared weights (the server's coalesced decode) the
@@ -18,7 +19,8 @@ import threading
 import torch
 
 from . import _build
-from .ref import grouped_matmul_ref
+from ._autograd import differentiable, needs_grad
+from .ref import grouped_matmul_bwd_ref, grouped_matmul_ref
 
 #: The kernels, by source: TMA + wgmma (bf16, d and f multiples of 8) and
 #: the first design (mma.sync for bf16, SIMT for f32).
@@ -134,8 +136,21 @@ def _(info, in_dims, x, w):
     return out.reshape(E, n, C, -1).movedim(1, 0), 0
 
 
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, gy):
+    return grouped_matmul_bwd_ref(*ctx.saved_tensors, gy)
+
+
+_GroupedMatmul = differentiable(_grouped_matmul_cuda, _setup_context, _backward)
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """CUDA tensors launch a kernel (or raise); CPU tensors take the plain version."""
     if x.device.type == "cuda":
+        if needs_grad(x, w):
+            return _GroupedMatmul.apply(x, w)
         return _grouped_matmul_cuda(x, w)
     return grouped_matmul_ref(x, w)

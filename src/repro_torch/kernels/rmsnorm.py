@@ -17,7 +17,8 @@ import threading
 import torch
 
 from . import _build
-from .ref import rmsnorm_ref
+from ._autograd import differentiable, needs_grad
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 MAX_D = 8192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -145,9 +146,26 @@ def _(info, in_dims, x, w, eps, residual):
     return _rmsnorm_cuda(x, w, eps, residual), 0   # vmapped dim folds into rows
 
 
+def _setup_context(ctx, inputs, output):
+    x, w, eps, residual = inputs
+    ctx.save_for_backward(x, w, residual)
+    ctx.eps = eps
+
+
+def _backward(ctx, gy):
+    x, w, residual = ctx.saved_tensors
+    gx, gw, gr = rmsnorm_bwd_ref(x, w, gy, ctx.eps, residual)
+    return gx, gw, None, gr
+
+
+_RMSNorm = differentiable(_rmsnorm_cuda, _setup_context, _backward)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             residual: torch.Tensor | None = None) -> torch.Tensor:
     """CUDA tensors launch the kernel (or raise); CPU tensors take the plain version."""
     if x.device.type == "cuda":
+        if needs_grad(x, w, residual):
+            return _RMSNorm.apply(x, w, eps, residual)
         return _rmsnorm_cuda(x, w, eps, residual)
     return rmsnorm_ref(x, w, eps=eps, residual=residual)

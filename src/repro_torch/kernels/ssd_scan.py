@@ -5,7 +5,8 @@ Replaces ``repro.kernels.ssd_scan`` (see the source notes in the ``.cu``
 files for the bounds and the designs). The intra-chunk pass is the custom
 op ``repro_torch::ssd_intra_chunk`` (CUDA tensors launch a kernel or raise;
 CPU tensors take :func:`ref.ssd_intra_chunk_ref`); its vmap rule folds the
-vmapped dim into the batch·head rows. Which kernel a CUDA call launches
+vmapped dim into the batch·head rows, and its autograd formula is the plain
+rule :func:`ref.ssd_intra_chunk_bwd_ref`. Which kernel a CUDA call launches
 depends on its shape and on whether its inputs start on 16-byte boundaries
 (:func:`kernel_for`). :func:`ssd` does the rest
 in plain torch, as the reference does in ``jnp``: the layout change, the
@@ -22,7 +23,8 @@ import threading
 import torch
 
 from . import _build
-from .ref import pad_ragged, ssd_intra_chunk_ref
+from ._autograd import differentiable, needs_grad
+from .ref import pad_ragged, ssd_intra_chunk_bwd_ref, ssd_intra_chunk_ref
 
 MAX_CHUNK = 128
 MAX_HEADDIM = 128
@@ -180,10 +182,26 @@ def _(info, in_dims, xs, b, c, lda, chunk):
     return tuple(o.reshape(n, o.shape[0] // n, *o.shape[1:]) for o in outs), (0, 0, 0)
 
 
+def _setup_context(ctx, inputs, output):
+    xs, b, c, lda, chunk = inputs
+    ctx.save_for_backward(xs, b, c, lda)
+    ctx.chunk = chunk
+
+
+def _backward(ctx, gy, gstate, gcdecay):
+    return (*ssd_intra_chunk_bwd_ref(*ctx.saved_tensors, ctx.chunk, gy, gstate, gcdecay),
+            None)
+
+
+_SSDIntraChunk = differentiable(_ssd_intra_chunk_cuda, _setup_context, _backward)
+
+
 def ssd_intra_chunk(xs: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     lda: torch.Tensor, chunk: int):
     """CUDA tensors launch the kernel (or raise); CPU tensors take the plain version."""
     if xs.device.type == "cuda":
+        if needs_grad(xs, b, c, lda):
+            return _SSDIntraChunk.apply(xs, b, c, lda, chunk)
         return _ssd_intra_chunk_cuda(xs, b, c, lda, chunk)
     return ssd_intra_chunk_ref(xs, b, c, lda, chunk)
 

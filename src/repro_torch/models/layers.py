@@ -6,9 +6,12 @@ the gelu/relu² MLPs come with the configs that use them. Each module
 holds the parameters the reference keeps in a pytree dict, under the same
 names (``Linear.w`` is ``(d_in, d_out)`` as in JAX, so ``y = x @ w``);
 each ``*_apply`` / ``linear`` / ``rmsnorm`` is a plain function of a
-module and tensors. Parameters are inference-only
-(``requires_grad=False``): the port serves and does not train. Compute dtype is ``cfg.dtype``, params
-``cfg.param_dtype``, with f32 softmax and norms.
+module and tensors, so it runs as well on a view of the same names over
+plain tensors (``model.bind``), which is how training differentiates them.
+A module's own parameters are made with ``requires_grad=False`` (serving
+never wants their gradients); training takes them as a name -> tensor dict
+(``model.params_of``) and asks for gradients of that. Compute dtype is
+``cfg.dtype``, params ``cfg.param_dtype``, with f32 softmax and norms.
 
 The KV cache is updated out of place (``scatter``), never in place, so the
 decode step can be ``torch.func.vmap``-ed across tenants.

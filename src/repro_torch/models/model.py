@@ -1,18 +1,29 @@
-"""Model API: init, logits, and prefill / decode for serving.
+"""Model API: init / forward / loss (training) and prefill / decode (serving).
 
-Port of the serving path of ``repro.models.model`` for the dense, MoE and
-SSM families. The decode step
-is the payload that the taskgraph runtime records and replays: shape
-stable and free of side effects (caches are returned, never written in
-place), so one step can be ``torch.func.vmap``-ed across tenants.
+Port of ``repro.models.model`` for the dense, MoE and SSM families. The
+decode step is the payload that the taskgraph runtime records and replays:
+shape stable and free of side effects (caches are returned, never written
+in place), so one step can be ``torch.func.vmap``-ed across tenants.
+
+Two views of one set of weights. A :class:`Model` holds them as modules
+(serving's form; no gradients). Training takes them as a flat dict of
+tensors keyed by the module paths (``params_of``): ``"embed.table"``,
+``"layers.3.attn.wq.w"``, ... — the reference's pytree with the stacked
+``L`` axis unrolled into the path. :func:`bind` turns such a dict into an
+attribute view of the same shape as a ``Model`` (no copy, no module
+state), so every apply function runs on it and autograd sees the dict's
+tensors; :func:`model_of` goes back to a ``Model`` sharing their storage.
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -54,30 +65,109 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Model:
     return model
 
 
-def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
-                    device: torch.device | str) -> Model:
-    """The port's model holding the reference's parameter pytree, on ``device``.
+def flatten_jax(np_tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, np.ndarray]:
+    """A tree of the reference's parameter structure (params, or AdamW's
+    ``mu`` / ``nu``) as numpy arrays -> {port name: array}.
 
-    ``np_params`` is the JAX tree as numpy arrays, layers stacked on a
-    leading ``L`` axis: ``model.layers.3.attn.wq.w`` takes
-    ``np_params["layers"]["attn"]["wq"]["w"][3]``, and likewise
+    Layers are stacked on a leading ``L`` axis in JAX: ``layers.3.attn.wq.w``
+    takes ``np_tree["layers"]["attn"]["wq"]["w"][3]``, and likewise
     ``layers.*.moe.router.w``, ``layers.*.moe.experts.{up,gate,down}.w``,
     ``layers.*.attn.{qnorm,knorm}.scale``, ``layers.*.ssm.*`` and ``head``.
     """
-    model = Model(cfg, device)
-    for name, prm in model.named_parameters():
+    out = {}
+    for name, prm in _skeleton(cfg).named_parameters():
         path = name.split(".")
         layer = None
         if path[0] == "layers":
             layer, path = int(path[1]), ["layers"] + path[2:]
-        node = np_params
+        node = np_tree
         for key in path:
             node = node[key]
         arr = np.asarray(node if layer is None else node[layer])
         if arr.shape != tuple(prm.shape):
             raise ValueError(f"{name}: JAX shape {arr.shape} != {tuple(prm.shape)}")
-        prm.copy_(torch.from_numpy(arr.astype(np.float32)).to(prm.dtype))
+        out[name] = arr
+    return out
+
+
+def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
+                    device: torch.device | str) -> Model:
+    """The port's model holding the reference's parameter pytree (numpy
+    arrays, layers stacked; see :func:`flatten_jax`), on ``device``."""
+    model = Model(cfg, device)
+    flat = flatten_jax(np_params, cfg)
+    for name, prm in model.named_parameters():
+        prm.copy_(torch.from_numpy(flat[name].astype(np.float32)).to(prm.dtype))
     return model
+
+
+def opt_state_from_jax(np_state: Mapping[str, Any], cfg: ModelConfig,
+                       device: torch.device | str) -> dict:
+    """The reference's AdamW state (``mu``, ``nu`` over the params tree,
+    ``step``) as numpy arrays -> the port's: ``mu`` / ``nu`` as f32 dicts
+    keyed like :func:`params_of`, ``step`` a 0-dim int32 tensor, all on
+    ``device``."""
+    state = {k: {n: torch.from_numpy(np.array(a, np.float32)).to(device)
+                 for n, a in flatten_jax(np_state[k], cfg).items()}
+             for k in ("mu", "nu")}
+    state["step"] = torch.tensor(int(np.asarray(np_state["step"])), dtype=torch.int32,
+                                 device=device)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# The functional view: name -> tensor dicts
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _skeleton(cfg: ModelConfig) -> Model:
+    """The module tree of ``cfg`` on the meta device (names and shapes only)."""
+    return Model(cfg, "meta")
+
+
+def params_of(model: Model) -> dict[str, torch.Tensor]:
+    """The model's weights as {module path: tensor}, sharing their storage."""
+    return {name: p.detach() for name, p in model.named_parameters()}
+
+
+def model_of(cfg: ModelConfig, params: Mapping[str, torch.Tensor]) -> Model:
+    """A :class:`Model` whose parameters share ``params``' storage."""
+    model = Model(cfg, "meta")
+    for name, mod in list(model.named_modules()):
+        for pname, prm in list(mod._parameters.items()):
+            if prm is not None:
+                key = f"{name}.{pname}" if name else pname
+                mod._parameters[pname] = nn.Parameter(params[key], requires_grad=False)
+    return model
+
+
+def _bind_module(mod: nn.Module, params: Mapping[str, torch.Tensor], prefix: str):
+    if isinstance(mod, nn.ModuleList):
+        return [_bind_module(m, params, f"{prefix}{i}.") for i, m in enumerate(mod)]
+    view = types.SimpleNamespace(**{k: None for k, v in vars(mod).items()
+                                    if v is None and not k.startswith("_")})
+    for name, prm in mod._parameters.items():
+        setattr(view, name, None if prm is None else params[prefix + name])
+    for name, sub in mod._modules.items():
+        setattr(view, name, None if sub is None else _bind_module(sub, params, f"{prefix}{name}."))
+    return view
+
+
+def bind(cfg: ModelConfig, params: Mapping[str, torch.Tensor], layer: int | None = None):
+    """An attribute view of ``params`` (keyed as :func:`params_of`) shaped
+    like a :class:`Model` (or, with ``layer``, like its block ``layer``,
+    read from the keys ``layers.{layer}.*``): the apply functions run on it
+    as on the modules, with the dict's tensors. Builds Python objects only."""
+    skel = _skeleton(cfg)
+    if layer is None:
+        return _bind_module(skel, params, "")
+    return _bind_module(skel.layers[layer], params, f"layers.{layer}.")
+
+
+def param_count(params) -> int:
+    """Number of weights of a :class:`Model` or a name -> tensor dict."""
+    tensors = params.parameters() if isinstance(params, nn.Module) else params.values()
+    return sum(t.numel() for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +195,66 @@ def _logits(params: Model, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tens
         pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     return logits
+
+
+def forward(params: Model, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full logits (B, S, V) and the MoE aux loss; use :func:`loss_fn` for
+    training (chunked CE)."""
+    h, aux, _ = hidden_states(params, cfg, batch["tokens"])
+    return _logits(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(params, cfg: ModelConfig, hidden, labels, mask):
+    logits = _logits(params, cfg, hidden)                 # (B, s, V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = (lse - gold) * mask
+    return ce.sum(), mask.sum()
+
+
+def shifted_labels(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token labels (the sequence rotated left by one) and the mask that
+    drops the last position, as the reference builds them."""
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return labels, mask
+
+
+def loss_fn(params: Model, cfg: ModelConfig, batch: dict):
+    """Next-token CE (+ MoE aux) -> (loss, {loss, ce, aux, tokens}).
+
+    ``params`` is a :class:`Model` or a :func:`bind` view. Big-vocab safe:
+    with ``cfg.loss_chunk`` dividing S (and below it), CE runs over sequence
+    chunks whose logits are recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so the
+    full logits never exist at once. ``batch["loss_mask"]`` (optional)
+    multiplies the mask.
+    """
+    tokens = batch["tokens"]
+    h, aux, _ = hidden_states(params, cfg, tokens)
+    labels, mask = shifted_labels(tokens)
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"].float()
+
+    Sq = tokens.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk and Sq % chunk == 0 and Sq > chunk:
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for i in range(Sq // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            s, n = checkpoint(_ce_chunk, params, cfg, h[:, sl], labels[:, sl], mask[:, sl],
+                              use_reentrant=False, preserve_rng_state=False)
+            tot, cnt = tot + s, cnt + n
+    else:
+        tot, cnt = _ce_chunk(params, cfg, h, labels, mask)
+    ce = tot / torch.clamp(cnt, min=1.0)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------

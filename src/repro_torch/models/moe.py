@@ -11,8 +11,8 @@ Every step is written so that ``torch.func.vmap`` batches it across
 tenants (the server's coalesced decode): no ``.item()``, no data-dependent
 shapes, no ``bincount`` or ``one_hot``. ``jnp.argsort(stable=True)``
 becomes ``torch.sort(stable=True)``, the bincount a ``scatter_add``, the
-dispatch scatter ``index_put(accumulate=True)`` and ``segment_sum`` an
-``index_add``. Capacity is computed from the member's own token count.
+dispatch scatter ``index_put(accumulate=True)`` and ``segment_sum`` a
+sum over the K choices of each token. Capacity is computed from the member's own token count.
 """
 from __future__ import annotations
 
@@ -124,11 +124,13 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
     h = (F.silu(gate.float()) * up.float()).to(cdt)
     eout = ops.grouped_matmul(h, ex.down.w.to(cdt))            # (E, C, d)
 
-    # combine: gather expert outputs back to tokens, weighted by gates
+    # combine: gather expert outputs back to tokens, weighted by gates. The
+    # reference's segment_sum over tok_ids adds each token's K rows, which lie
+    # next to each other, so it is a sum over K: an index_add would do the
+    # same adds with atomics on the card, in an order that varies run to run
     gathered = eout.reshape(E * C, d).index_select(0, flat_expert * C + safe_pos)
     weights = torch.where(keep, gate_vals.reshape(-1), 0.0)
-    combined = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add(
-        0, tok_ids, gathered.float() * weights[:, None])
+    combined = (gathered.float() * weights[:, None]).reshape(T, K, d).sum(dim=1)
     out = combined.to(cdt).reshape(B, S, d)
 
     for i in range(cfg.num_shared_experts):

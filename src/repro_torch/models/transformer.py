@@ -8,14 +8,23 @@ Port of ``repro.models.transformer`` for the ported families:
 
 Blocks run layer by layer (the reference's unrolled ``decoder_stack``
 branch, which is what prefill and decode use) and return the MoE auxiliary
-loss beside the activations, summed over layers as the reference does.
+loss beside the activations, summed over layers as the reference does. In
+training (``mode="train"`` with gradients on), ``cfg.remat`` other than
+``"none"`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` does (under the kernel mode of the forward, which
+autograd's own thread would not see); ``"dots"`` (the reference's policy that keeps
+non-batched products) has no selective policy here and recomputes the
+whole block as ``"full"`` does.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..kernels import registry as _kreg
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -104,7 +113,21 @@ def decoder_stack(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     """Run all decoder blocks in order. Returns (x, total_aux, new_caches)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
+    remat = cfg.remat != "none" and mode == "train" and torch.is_grad_enabled()
+    kernel_mode = _kreg.kernel_mode()
+
+    def recomputable(*args, **kwargs):
+        # the recompute runs on autograd's thread: pin this thread's kernel mode
+        with _kreg.kernel_mode_scope(kernel_mode):
+            return block_apply(*args, **kwargs)
+
     for i, block in enumerate(layers):
+        if remat:
+            x, a, nc = checkpoint(recomputable, block, cfg, x, positions, layer_idx=i,
+                                  mode=mode, use_reentrant=False,
+                                  preserve_rng_state=False)
+            aux = aux + a
+            continue
         x, a, nc = block_apply(block, cfg, x, positions, layer_idx=i, mode=mode,
                                cache=caches[i] if caches is not None else None)
         aux = aux + a

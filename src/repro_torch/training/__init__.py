@@ -1,3 +1,3 @@
-from .step import make_serve_step
+from .step import make_serve_step, make_tdg_train_region, make_train_step
 
-__all__ = ["make_serve_step"]
+__all__ = ["make_serve_step", "make_tdg_train_region", "make_train_step"]

@@ -9,7 +9,8 @@ installed. On the card, from the repository root:
 Each kernel is held against its plain version (atol = rtol = 2e-5 in f32,
 2e-2 in bf16; grouped matmul at atol = TOL·d, rtol = TOL; SSD at 1e-3),
 under ``torch.func.vmap`` too, and the reduced models of the three ported
-families are run with the kernels and with the plain versions. Each
+families are run with the kernels and with the plain versions; the MoE
+layer at full width gives the same bits on every run. Each
 attention, grouped-matmul, RMSNorm and SSD case of the redesigned kernels
 also checks that the kernel ``kernel_for`` picks (TMA + wgmma, rows in
 registers, 3xTF32 tensor cores at the shapes they take; the first design
@@ -275,6 +276,23 @@ def test_reduced_model_kernels_match_plain_versions(arch):
             logits_ref, _, _ = M.prefill(params, cfg, {"tokens": tokens}, 48)
     torch.testing.assert_close(logits, logits_ref, atol=1e-4, rtol=1e-4)
     assert torch.equal(got, want)
+
+
+def test_moe_layer_gives_the_same_bits_every_run():
+    """qwen3-moe's MoE layer at full width (8 choices a token) on a prefill of
+    4 x 512 tokens: four runs give the same bits, because the combine adds
+    each token's rows in a fixed order."""
+    from repro_torch.models import moe
+    cfg = get_config("qwen3-moe-30b-a3b")
+    layer = moe.MoE(cfg, device="cuda")
+    g = torch.Generator("cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * p.shape[-2] ** -0.5)
+        x = _randn(g, 4, 512, cfg.d_model, dtype=cfg.compute_dtype)
+        outs = [moe.moe_apply(layer, cfg, x)[0] for _ in range(4)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
 
 
 # ------------------------------------------------- CUDA-graph replay of regions
@@ -549,3 +567,137 @@ def test_captured_and_uncaptured_steps_are_equal():
     for a, b in zip(outs[True], outs[False]):
         assert torch.equal(a, b)
     clear_intern_cache()
+
+
+# ---------------------------------------------------------------- training
+
+def _grads_of(fn, inputs, cots):
+    xs = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    return torch.autograd.grad(out if isinstance(out, tuple) else (out,), xs, cots)
+
+
+def _rule_cases(g, dtype):
+    x, w, r = _randn(g, 3, 40, 128, dtype=dtype), _randn(g, 128), _randn(g, 3, 40, 128, dtype=dtype)
+    q = _randn(g, 2, 96, 8, 64, dtype=dtype)
+    k, v = _randn(g, 2, 96, 2, 64, dtype=dtype), _randn(g, 2, 96, 2, 64, dtype=dtype)
+    xg, wg = _randn(g, 4, 24, 64, dtype=dtype), _randn(g, 4, 64, 40, dtype=dtype)
+    xs, b, c = _randn(g, 8, 64, 16) * 0.3, _randn(g, 2, 64, 16) * 0.5, _randn(g, 2, 64, 16) * 0.5
+    lda = -_randn(g, 8, 64).abs() * 0.2
+    return {
+        "rmsnorm": (rms, lambda a, b_, c_: rms.rmsnorm(a, b_, residual=c_),
+                    lambda a, b_, c_: ref.rmsnorm_ref(a, b_, residual=c_), [x, w, r]),
+        "flash_attention": (fa, lambda a, b_, c_: fa.flash_attention(a, b_, c_, window=40),
+                            lambda a, b_, c_: ref.attention_ref(a, b_, c_, window=40), [q, k, v]),
+        "grouped_matmul": (gmm, gmm.grouped_matmul, ref.grouped_matmul_ref, [xg, wg]),
+        "ssd_intra_chunk": (ssd_scan, lambda *a: ssd_scan.ssd_intra_chunk(*a, 32),
+                            lambda *a: ref.ssd_intra_chunk_ref(*a, 32), [xs, b, c, lda]),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "grouped_matmul",
+                                  "ssd_intra_chunk"])
+def test_backward_rule_on_the_kernel_path(name, dtype):
+    """The kernel's forward and the op's backward rule against the plain
+    forward and autograd; the forward is the kernel (its count rises)."""
+    if name == "ssd_intra_chunk" and dtype == torch.bfloat16:
+        pytest.skip("the SSD kernel takes f32 only")
+    g = torch.Generator("cuda").manual_seed(11)
+    mod, kernel_fn, plain_fn, inputs = _rule_cases(g, dtype)[name]
+    with torch.no_grad():
+        outs = kernel_fn(*inputs)
+    cots = [torch.randn_like(o) for o in (outs if isinstance(outs, tuple) else (outs,))]
+    before = mod.launches
+    got = _grads_of(kernel_fn, inputs, cots)
+    assert mod.launches == before + 1
+    want = _grads_of(plain_fn, inputs, cots)
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= TOL[dtype] * scale
+    x = inputs[0].detach().requires_grad_()       # torch.func.vjp takes the rule too
+    out, vjp = torch.func.vjp(lambda a: kernel_fn(a, *inputs[1:]), x)
+    (gx,) = vjp(tuple(cots) if isinstance(out, tuple) else cots[0])
+    torch.testing.assert_close(gx, got[0])
+
+
+def _train_setup(**kw):
+    from repro_torch.optim import adamw
+
+    cfg = reduced(get_config("qwen2.5-3b"), num_layers=2, **kw)
+    params = M.params_of(M.init_params(cfg, torch.Generator("cuda").manual_seed(0)))
+    toks = torch.randint(2, cfg.vocab_size, (2, 32), generator=torch.Generator("cuda").manual_seed(1),
+                         device="cuda", dtype=torch.int32)
+    return cfg, params, adamw(1e-2), toks
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def test_captured_train_region_equals_uncaptured_and_keeps_donated_buffers():
+    from repro_torch.core import EagerExecutor, lower_tdg, reset_registry
+    from repro_torch.training import make_tdg_train_region
+
+    reset_registry()
+    cfg, params, opt, toks = _train_setup(dtype="bfloat16")
+    region = make_tdg_train_region(cfg, opt, name="cuda train region")
+    outs = ("params", "opt_state", "loss")
+    rec = region(params=params, opt_state=opt.init(params), tokens=toks)
+    unc = lower_tdg(region.tdg, jit=False, outputs=outs)(
+        {"params": params, "opt_state": opt.init(params), "tokens": toks})
+    eager = EagerExecutor(region.tdg).run(
+        {"params": params, "opt_state": opt.init(params), "tokens": toks}, outputs=list(outs))
+    p, s = _clone_tree(params), opt.init(params)
+    for i in range(3):
+        out = region(params=p, opt_state=s, tokens=toks)
+        assert all(out["params"][k] is p[k] for k in p)           # written in place, no copy
+        assert out["opt_state"]["step"] is s["step"]
+        if i == 0:
+            for k in p:
+                torch.testing.assert_close(out["params"][k], unc["params"][k], atol=0, rtol=0)
+                torch.testing.assert_close(out["params"][k], eager["params"][k], atol=0, rtol=0)
+            torch.testing.assert_close(out["loss"], unc["loss"], atol=0, rtol=0)
+            torch.testing.assert_close(rec["loss"], unc["loss"], atol=0, rtol=0)
+        p, s = out["params"], out["opt_state"]
+    graph = next(iter(region._replay_cache.values())).graph_replay
+    assert graph.captures == 1 and int(s["step"]) == 3
+    reset_registry()
+
+
+def test_fused_train_step_matches_plain_versions():
+    from repro_torch.training import make_train_step
+
+    cfg, params, opt, toks = _train_setup(dtype="bfloat16", remat="full")
+    step = make_train_step(cfg, opt)
+    _, _, m = step(_clone_tree(params), opt.init(params), {"tokens": toks})
+    with registry.kernel_mode_scope("ref"):
+        _, _, mp = step(_clone_tree(params), opt.init(params), {"tokens": toks})
+    for k in ("loss", "grad_norm"):
+        assert abs(m[k].item() - mp[k].item()) <= 2e-2 * abs(mp[k].item())
+
+
+def test_checkpoint_saved_while_the_next_in_place_step_runs(tmp_path):
+    """save() snapshots synchronously; the in-place step launched right after
+    it (while the background thread writes) does not reach the checkpoint."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.training import make_train_step
+
+    cfg, params, opt, toks = _train_setup()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    params, state, _ = step(params, state, {"tokens": toks})
+    snapshot = {"params": _clone_tree(params), "opt_state": _clone_tree(state)}
+    ck = Checkpointer(tmp_path)
+    ck.save({"params": params, "opt_state": state}, 1)
+    params, state, _ = step(params, state, {"tokens": toks})       # overwrites in place
+    restored, at = ck.restore({"params": params, "opt_state": state})
+    assert at == 1
+    for part in ("params", "opt_state"):
+        for k, v in snapshot[part].items():
+            if isinstance(v, dict):
+                for kk, vv in v.items():
+                    assert torch.equal(restored[part][k][kk], vv)
+            else:
+                assert torch.equal(restored[part][k], v)
+    assert not torch.equal(restored["params"]["embed.table"], params["embed.table"])

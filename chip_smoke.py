@@ -50,6 +50,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    attention at the dense shape and in f32 with a window and a decode
    offset; grouped matmul at the MoE prefill shape; SSD at mamba2's); the
    rule alone is timed beside its bound and goes into the op's entry.
+   Last, the kernels at the shapes the families phase (4) gives them first,
+   each case one counted launch of the kernel ``kernel_for`` picks against
+   the plain version, then timed beside the plain version, a library call
+   and the bound, with an entry of its own: flash attention non-causal over
+   whisper's 1500 frames (4 x 1500, 12/12 heads of 64), whisper's
+   cross-attention (Sq 512 against Sk 1500) and hymba's GQA 5 (25/5 heads of
+   64) under its 1024-token window at 4 x 2048 (prompts of 512 never reach
+   the window); the first-design RMSNorm at hymba's d 1600 (2048 rows,
+   bf16); grouped matmul at llama4's (16, 160, 5120) @ (16, 5120, 8192)
+   bf16; SSD at hymba's 50 heads of 64, state 16, chunk 128.
 3. Paths, one model at a time (the previous one freed first), two paths a
    model, each driven the same way: 4 tenants each prefill batch 4 x 512
    tokens, then 8 greedy decode steps each from 4 threads through the
@@ -94,9 +104,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
       the bf16 gap at depths 3, 12, 24 and 48 printed without limit
       (one-ulp differences grow with depth through the random-weight
       stack).
-4. Profile, for each path: one more coalesced decode round under
+   Each path ends with one more coalesced decode round under
    ``torch.profiler`` (and, request-level, one prefill), printing the
    card's busy and idle shares and the kernels that take the device time.
+4. Families: the reference's other seven models, one at a time (the
+   previous one freed), f32 params from a seeded card generator, bf16
+   compute, each through the default server exactly as a path of phase 3
+   (4 tenants x 4 x 512 prompt tokens, 8 greedy decode steps, every step a
+   graph replay, one fixed group captured against uncaptured; counts set
+   to 0 just before and read just after): glm4-9b (40 layers), minicpm-2b
+   (40), minitron-8b (32), chameleon-34b (12 of 48 layers: f32 params of 48
+   take 137 GB), llama4-scout-17b-a16e (4 of 48; layer index 3 is its
+   global-attention layer), hymba-1.5b (32) and whisper-small (12 encoder +
+   12 decoder layers; each tenant's prefill takes seeded frames (4, 1500,
+   768)), all at full width. The TMA + wgmma flash attention must launch
+   once a layer a tenant in prefill (whisper: encoder, self- and
+   cross-attention), the register-resident RMSNorm in prefill and decode on
+   every model but whisper (LayerNorm, plain torch), grouped matmul 3 times
+   a layer in prefill and in decode on llama4, the tensor-core SSD once a
+   layer in prefill and never in decode on hymba, and the first-design
+   RMSNorm (d 1600) in prefill and decode on hymba; no other first design.
+   Then (a) in f32 with the same weights, tenant 0's prefill logits and 3
+   decode steps, kernels against plain within relative L2 1e-3 (llama4's
+   plain run pinned to the kernel run's expert choices); (b) layer 0 in
+   bf16 on one input within relative L2 2e-2 (whisper's with
+   cross-attention to a (4, 1500, 768) encoder output; llama4 pinned); (c)
+   the bf16 whole-model gap printed without limit. Each model prints its
+   prefill ms, decode tok/s, p50 / p99, warm round, captures, peak memory
+   and seconds.
 5. Taskgraph: the paper's record -> fuse -> lower -> replay path on the
    paper's workloads (``repro_torch.workloads``), each at a coarse and a
    fine grain, at sizes where the card does real work: Cholesky n 16,384
@@ -160,8 +195,8 @@ counts do not see).
 
 The last lines are one ``{"kernels": [...]}`` JSON object (with each op's
 backward rule: ``backward_ms``, ``backward_bound_ms``, ...), one
-``{"taskgraph": [...]}`` object, one ``{"training": {...}}`` object and then
-``{"ok": true, "device": {...}}``.
+``{"taskgraph": [...]}`` object, one ``{"training": {...}}`` object, one
+``{"families": {...}}`` object and then ``{"ok": true, "device": {...}}``.
 Needs a CUDA card and the repository beside this file.
 """
 from __future__ import annotations
@@ -688,6 +723,133 @@ def check_ssd(ssd, ref, gen) -> dict:
     return e
 
 
+def _attention_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
+    """(q, k) pairs one head of one sequence needs: all of them without
+    causality, else key j <= query i (and i - j < window)."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(i + 1, window or i + 1) for i in range(Sq))
+
+
+def check_new_shapes(rms, fa, gmm, ssd, ref, gen) -> list:
+    """The four kernels at the shapes the families phase gives them first:
+    non-causal attention over whisper's 1500 frames and its cross-attention
+    (Sq 512, Sk 1500), hymba's GQA 5 under its 1024-token window (prompts of
+    512 never reach the window), the first-design RMSNorm at hymba's d 1600,
+    grouped matmul at llama4's 16 experts x 5120 -> 8192 (top-1, capacity
+    160 at 2048 tokens) and the SSD intra-chunk kernel at hymba's 50 heads
+    of 64, state 16. Each case: one counted launch of the kernel
+    ``kernel_for`` picks, against the plain version at the phase's
+    tolerances; then its time, the plain version's, one library call's and
+    the bound. One entry each."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+    out = []
+    for label, (B, Sq, Sk, Hq, Hkv, D), kw in (
+            ("whisper encoder", (TENANTS, 1500, 1500, 12, 12, 64), {"causal": False}),
+            ("whisper cross", (TENANTS, PROMPT, 1500, 12, 12, 64), {"causal": False}),
+            ("hymba window", (TENANTS, 2048, 2048, 25, 5, 64), {"window": 1024})):
+        q = randn(B, Sq, Hq, D, dtype=bf16, gen=gen)
+        k, v = (randn(B, Sk, Hkv, D, dtype=bf16, gen=gen) for _ in range(2))
+        kernel = fa.kernel_for(bf16, D)
+        _, err = check_case(f"attention {label} {(B, Sq, Sk, Hq, Hkv, D)} {kw}", fa, kernel,
+                            lambda: fa.flash_attention(q, k, v, **kw),
+                            ref.attention_ref(q, k, v, **kw), TOL[bf16])
+        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush=flush)
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, **kw), flush=flush)
+        causal, window = kw.get("causal", True), kw.get("window")
+        mask = None
+        if window:   # SDPA takes the band as a boolean mask (True: attend)
+            i = torch.arange(Sq, device="cuda")
+            mask = (i[None] <= i[:, None]) & (i[:, None] - i[None] < window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = library_ms("F.scaled_dot_product_attention",
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), flush)
+        flops = 4 * D * B * Hq * _attention_pairs(Sq, Sk, causal, window)
+        b_ms, b_by = bound(sum(t.numel() * t.element_size() for t in (q, k, v, q)), flops, bf16)
+        log(f"flash_attention {label} {B}x{Sq} vs {Sk}, {Hq}/{Hkv} heads of {D} {kw} "
+            f"[{kernel}]: agrees (max abs err {err:.3g}); kernel {kernel_ms:.4f} ms "
+            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {b_ms / kernel_ms:.1%} of the {b_by} "
+            f"bound {b_ms:.4f} ms); plain {plain_ms:.4f} ms; SDPA {lib_ms} ms")
+        e = entry(f"flash_attention @ {label}", f"{kernel}.cu",
+                  "src/repro/kernels/flash_attention.py:102", err, TOL[bf16], kernel_ms,
+                  plain_ms, lib_ms, b_ms, b_by, [B, Sq, Sk, Hq, Hkv, D], "bfloat16")
+        e["masks"] = kw
+        out.append(e)
+        del q, k, v, qt, kt, vt
+
+    n, d = TENANTS * PROMPT, 1600
+    x, w = randn(n, d, dtype=bf16, gen=gen), randn(d, dtype=torch.float32, gen=gen)
+    kernel = rms.kernel_for(bf16, d)
+    if kernel != rms.KERNELS[1]:
+        raise AssertionError(f"rmsnorm at d {d} picks {kernel}, not the first design")
+    _, err = check_case(f"rmsnorm hymba ({n}, {d}) bf16", rms, kernel, lambda: rms.rmsnorm(x, w),
+                        ref.rmsnorm_ref(x, w), TOL[bf16])
+    kernel_ms = time_ms(lambda: rms.rmsnorm(x, w), flush=flush)
+    plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, w), flush=flush)
+    lib_ms = library_ms("F.rms_norm", lambda: F.rms_norm(x, (d,), w, 1e-6), flush)
+    b_ms, b_by = bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
+                       4 * x.numel(), torch.float32)
+    log(f"rmsnorm hymba ({n}, {d}) bf16 [{kernel}]: agrees (max abs err {err:.3g}); kernel "
+        f"{kernel_ms:.4f} ms ({b_ms / kernel_ms:.1%} of the {b_by} bound {b_ms:.4f} ms); plain "
+        f"{plain_ms:.4f} ms; F.rms_norm {lib_ms} ms")
+    out.append(entry("rmsnorm (first design) @ hymba d 1600", "rmsnorm.cu",
+                     "src/repro/kernels/rmsnorm.py:33", err, TOL[bf16], kernel_ms, plain_ms,
+                     lib_ms, b_ms, b_by, [n, d], "bfloat16"))
+
+    E, C, dd, ff = 16, 160, 5120, 8192
+    x = randn(E, C, dd, dtype=bf16, gen=gen, scale=0.3)
+    w = randn(E, dd, ff, dtype=bf16, gen=gen, scale=0.3)
+    kernel = gmm.kernel_for(bf16, dd, ff)
+    want = ref.grouped_matmul_ref(x, w)
+    got, err = check_case(f"grouped_matmul llama4 {(E, C, dd, ff)}", gmm, kernel,
+                          lambda: gmm.grouped_matmul(x, w), want, TOL[bf16] * dd, TOL[bf16])
+    rl2 = rel_l2(got, want)
+    if rl2 > GMM_REL[bf16]:
+        raise AssertionError(f"grouped_matmul llama4: rel L2 {rl2:.3g} > {GMM_REL[bf16]}")
+    del got, want
+    kernel_ms = time_ms(lambda: gmm.grouped_matmul(x, w), flush=flush)
+    plain_ms = time_ms(lambda: ref.grouped_matmul_ref(x, w), flush=flush)
+    lib_ms = library_ms("torch.bmm", lambda: torch.bmm(x, w), flush)
+    flops = 2 * E * C * dd * ff
+    b_ms, b_by = bound(2 * (x.numel() + w.numel() + E * C * ff), flops, bf16)
+    log(f"grouped_matmul llama4 {E}x{C}x{dd} @ {E}x{dd}x{ff} [{kernel}]: agrees (rel L2 "
+        f"{rl2:.3g}); kernel {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / kernel_ms:.1%} of the {b_by} bound {b_ms:.4f} ms); plain {plain_ms:.4f} ms; "
+        f"torch.bmm {lib_ms} ms")
+    out.append(entry("grouped_matmul @ llama4", f"{kernel}.cu", "src/repro/kernels/moe_gmm.py:41",
+                     err, TOL[bf16] * dd, kernel_ms, plain_ms, lib_ms, b_ms, b_by,
+                     [E, C, dd, ff], "bfloat16"))
+    del x, w
+
+    Bz, S, H, P, G, N, Q = TENANTS, PROMPT, 50, 64, 1, 16, 128       # hymba prefill
+    x, dt, A, Bm, Cm, D = _ssd_inputs(gen, Bz, S, H, P, G, N)
+    kernel = ssd.kernel_for(P, N, Q)
+    y, hT = one_launch(f"ssd hymba {(Bz, S, H, P, G, N, Q)}", ssd, kernel,
+                       lambda: ssd.ssd(x, dt, A, Bm, Cm, D=D, chunk=Q))
+    want_y, want_h = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D=D, chunk=Q)
+    err = compare(f"ssd hymba [{kernel}] y", y, want_y, SSD_TOL)
+    compare(f"ssd hymba [{kernel}] state", hT, want_h, SSD_TOL)
+    xs = ssd._rows_first(x * dt[..., None])
+    bg, cg, lda = ssd._rows_first(Bm), ssd._rows_first(Cm), ssd._rows_first(dt * A)
+    kernel_ms = time_ms(lambda: ssd.ssd_intra_chunk(xs, bg, cg, lda, Q), flush=flush)
+    plain_ms = time_ms(lambda: ref.ssd_intra_chunk_ref(xs, bg, cg, lda, Q), flush=flush)
+    BH, nc = Bz * H, S // Q
+    pairs = nc * Q * (Q + 1) // 2
+    flops = 2 * pairs * (Bz * G * N + BH * P) + 2 * BH * nc * Q * N * P
+    nbytes = 4 * (2 * xs.numel() + bg.numel() + cg.numel() + lda.numel()
+                  + BH * nc * (N * P + 1))
+    b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
+    log(f"ssd hymba (BH {BH}, S {S}, Q {Q}, P {P}, N {N}) [{kernel}]: agrees (max abs err "
+        f"{err:.3g}); intra-chunk kernel {kernel_ms:.4f} ms ({b_ms / kernel_ms:.1%} of the "
+        f"{b_by} bound {b_ms:.4f} ms); plain {plain_ms:.4f} ms; no library call")
+    out.append(entry("ssd_intra_chunk @ hymba", f"{kernel}.cu", "src/repro/kernels/ssd_scan.py:69",
+                     err, SSD_TOL, kernel_ms, plain_ms, None, b_ms, b_by, [BH, S, Q, P, N],
+                     "float32"))
+    return out
+
+
 # ---------------------------------------------------------------- paths
 
 def device_profile(label: str, fn, tries: int = 1) -> dict:
@@ -753,8 +915,16 @@ def read_counts(kernels: dict) -> dict:
 
 
 # the kernels each family's decode step launches, by symbol in a profiler trace
+# (whisper's decode step runs no hand-written kernel: LayerNorm, the cached
+# self- and cross-attention are plain torch, as in the reference)
 DECODE_SYMBOLS = {"dense": ("rmsnorm_sm90_kernel",), "moe": ("rmsnorm_sm90_kernel",
-                  "gmm_sm90_kernel"), "mamba2": ("rmsnorm_sm90_kernel",)}
+                  "gmm_sm90_kernel"), "mamba2": ("rmsnorm_sm90_kernel",),
+                  "glm4-9b": ("rmsnorm_sm90_kernel",), "minicpm-2b": ("rmsnorm_sm90_kernel",),
+                  "minitron-8b": ("rmsnorm_sm90_kernel",),
+                  "chameleon-34b": ("rmsnorm_sm90_kernel",),
+                  "llama4-scout-17b-a16e": ("rmsnorm_sm90_kernel", "gmm_sm90_kernel"),
+                  "hymba-1.5b": ("rmsnorm_sm90_kernel", "rmsnorm_kernel"),
+                  "whisper-small": ()}
 RESERVED_LIMIT = 8 << 30
 
 
@@ -774,7 +944,7 @@ def _register_decoders(server, decode) -> None:
 
 
 def serve_path(label: str, family: str, cfg, params, kernels: dict,
-               continuous: bool | None) -> dict:
+               continuous: bool | None, first_designs: tuple = ()) -> dict:
     """One model's main path: 4 tenants prefill, then decode through the
     ``RegionServer`` from 4 threads, request-level (``continuous=False``) or
     through the default server (continuous, every step a graph replay).
@@ -782,15 +952,18 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
     into prefill and decode); then a profiled decode round (and, for the
     request-level path, a profiled prefill). Checks what every path must
     show; the default server's path also its captures, the kernels its graph
-    replays launch, and one fixed group captured against uncaptured."""
+    replays launch, and one fixed group captured against uncaptured. The
+    first designs in ``first_designs`` are the ones this model's shapes
+    select; every other first design must launch 0 times."""
     from repro_torch.core import lower
-    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import model as M
     from repro_torch.serving import RegionServer
     from repro_torch.training import make_serve_step
 
     max_len = PROMPT + DECODE_STEPS + 1
-    prompts = [prompt_tokens(cfg, BATCH, PROMPT, 1 + i, "cuda") for i in range(TENANTS)]
+    # a tenant's prompt: token ids (and, for encdec, frames) from seed 1 + i
+    prompts = [prompt_batch(cfg, BATCH, PROMPT, 1 + i, "cuda") for i in range(TENANTS)]
     decode = make_serve_step(cfg)
     lower.clear_intern_cache()
 
@@ -801,13 +974,14 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
     for i in range(TENANTS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches, pos = M.prefill(params, cfg, {"tokens": prompts[i]}, max_len)
+        logits, caches, pos = M.prefill(params, cfg, prompts[i], max_len)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         states.append({"tok": tok, "pos": pos, "caches": caches, "out": [tok],
                        "logits": logits})
     in_prefill = read_counts(kernels)
+    del logits, caches, pos, tok   # the states hold them
 
     server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, name=f"chip-smoke-{label}",
                           continuous=continuous)
@@ -844,7 +1018,7 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
 
         if not server.continuous:
             device_profile(f"{label} prefill (1 tenant, {BATCH}x{PROMPT})",
-                           lambda: M.prefill(params, cfg, {"tokens": prompts[0]}, max_len))
+                           lambda: M.prefill(params, cfg, prompts[0], max_len))
 
         def decode_round():
             futures = server.submit_many([(f"tenant{i}", _decode_request(params, st))
@@ -886,7 +1060,7 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
     log(f"{label} launches: " + "; ".join(f"{k} {in_prefill[k]} in prefill + {in_decode[k]} "
                                           f"in decode" for k in total))
     for first in FIRST_DESIGNS:
-        if total[first]:
+        if total[first] and first not in first_designs:
             raise AssertionError(f"{label}: the first design {first} launched {total[first]} "
                                  f"times on the main path")
 
@@ -922,19 +1096,47 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
                                  f"(class, bucket) pairs in the trace")
         fixed_group(label, decode, params, states)
 
-    del server
+    # the tenants' caches and logits end here, and the tokens callers read
+    # are copied out of the served steps' packed outputs (views that would
+    # keep each step's int32 output alive): what stays reserved beyond the
+    # params after this is what the path failed to free (a live tensor of a
+    # MiB or more pins the whole cached block it was carved from)
+    served = [(st.pop("caches"), st.pop("logits"), st["out"]) for st in states]
+    for st in states:
+        st["out"] = [t.clone() for t in st["out"]]
+        st["tok"] = st["out"][-1]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in torch.utils._pytree.tree_leaves(served)}
+    cache_bytes = sum(storages.values())
+    del server, served
     lower.clear_intern_cache()
     gc.collect()
     torch.cuda.empty_cache()
     param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     reserved = torch.cuda.memory_reserved()
-    log(f"{label}: after the path {reserved / 2**30:.2f} GiB reserved, of which the params "
-        f"{param_bytes / 2**30:.2f} GiB")
+    log(f"{label}: after the path {reserved / 2**30:.2f} GiB reserved, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, of which the params "
+        f"{param_bytes / 2**30:.2f} GiB (the served caches, logits and step outputs, "
+        f"{cache_bytes / 2**30:.2f} GiB of storage, freed)")
+    if reserved - param_bytes > RESERVED_LIMIT / 2:
+        segments = sorted(torch.cuda.memory_snapshot(),
+                          key=lambda g: g["allocated_size"] - g["total_size"])
+        for g in segments[:8]:
+            log(f"  segment {g['total_size'] / 2**20:.0f} MiB, {g['allocated_size'] / 2**20:.0f} "
+                f"MiB allocated, pool {g.get('segment_pool_id')}, blocks "
+                f"{[(b['size'] >> 20, b['state']) for b in g['blocks']][:6]}")
     if reserved - param_bytes > RESERVED_LIMIT:
         raise AssertionError(f"{label}: more than 8 GiB reserved beyond the params after "
                              f"the path")
     return {"states": states, "prompts": prompts, "max_len": max_len,
-            "prefill": in_prefill, "decode": in_decode, "replayed": replayed}
+            "prefill": in_prefill, "decode": in_decode, "replayed": replayed,
+            "metrics": {"prefill_ms": prefill_ms, "decode_s": t_decode,
+                        "decode_tok_s": toks / t_decode,
+                        "p50_ms": m["latency"]["p50_s"] * 1e3,
+                        "p99_ms": m["latency"]["p99_s"] * 1e3,
+                        "warm_round_ms": round_ms, "captures": graphs["captures"],
+                        "capture_ms": graphs["capture_ms"], "card_idle": profiled["idle"],
+                        "step_host_ms": parts}}
 
 
 def captured_step_parts(server, params, states) -> dict | None:
@@ -1016,17 +1218,22 @@ def fixed_group(label: str, decode, params, states) -> None:
         raise AssertionError(f"{label} fixed group: caches differ by {gap:.3g}")
 
 
-def logits_gap(params, cfg, prompt, max_len, registry, first_tok,
+def logits_gap(params, cfg, prompt: dict, max_len, registry, step_toks: list,
                kernel_ctx=contextlib.nullcontext, plain_ctx=contextlib.nullcontext):
-    """Tenant 0's prefill logits and one decode step, with the kernels and
-    with the plain versions (each run inside its context): (prefill rel L2,
-    max abs, decode rel L2, max abs)."""
+    """Tenant 0's prefill logits and a decode step for each of ``step_toks``
+    (the same tokens in both runs), with the kernels and with the plain
+    versions (each run inside its context): (prefill rel L2, max abs, decode
+    rel L2, max abs), the decode steps' logits taken together."""
     from repro_torch.models import model as M
 
     def run():
-        logits, caches, pos = M.prefill(params, cfg, {"tokens": prompt}, max_len)
-        dec, _ = M.decode_step(params, cfg, first_tok[:, None], pos, caches)
-        return logits[..., :cfg.vocab_size], dec[..., :cfg.vocab_size]
+        logits, caches, pos = M.prefill(params, cfg, prompt, max_len)
+        decs = []
+        for tok in step_toks:
+            dec, caches = M.decode_step(params, cfg, tok[:, None], pos, caches)
+            pos = pos + 1
+            decs.append(dec)
+        return logits[..., :cfg.vocab_size], torch.cat(decs, 1)[..., :cfg.vocab_size]
 
     with torch.no_grad():
         with kernel_ctx():
@@ -1042,7 +1249,7 @@ def logits_gap(params, cfg, prompt, max_len, registry, first_tok,
 def check_gap(label: str, gap, limit: float) -> None:
     pre, pre_abs, dec, dec_abs = gap
     log(f"{label} logits kernels vs plain (tenant 0): prefill rel L2 {pre:.3g} (max abs "
-        f"{pre_abs:.3g}), decode step rel L2 {dec:.3g} (max abs {dec_abs:.3g}); limit {limit}")
+        f"{pre_abs:.3g}), decode steps rel L2 {dec:.3g} (max abs {dec_abs:.3g}); limit {limit}")
     if not (pre <= limit and dec <= limit):
         raise AssertionError(f"{label}: kernel and plain logits differ by more than "
                              f"rel L2 {limit}")
@@ -1079,7 +1286,7 @@ def run_dense(kernels, registry) -> dict:
                                  f"not {cfg.num_layers} a tenant")
         need_both(run, "rmsnorm_sm90")
     gap = logits_gap(params, cfg, run["prompts"][0], run["max_len"], registry,
-                     run["states"][0]["out"][0])
+                     run["states"][0]["out"][:1])
     check_gap("dense", gap, 2e-2)
     return runs
 
@@ -1159,7 +1366,7 @@ def run_moe(kernels, registry) -> dict:
                                  f"prefill, not {cfg.num_layers} a tenant")
         need_both(run, "rmsnorm_sm90")
 
-    prompt, first = run["prompts"][0], run["states"][0]["out"][0]
+    prompt, first = run["prompts"][0], run["states"][0]["out"][:1]
     n = cfg.num_layers
     # (a) f32, same weights: the kernels against the plain versions, the
     # plain run pinned to the kernel run's expert choices (near-tied top-8
@@ -1217,7 +1424,7 @@ def run_mamba(kernels, registry) -> dict:
         if run["decode"]["ssd_chunk_sm90"] != 0:
             raise AssertionError("SSD kernel launched in decode (the recurrence runs there)")
         need_both(run, "rmsnorm_sm90")
-    prompt, first = run["prompts"][0], run["states"][0]["out"][0]
+    prompt, first = run["prompts"][0], run["states"][0]["out"][:1]
     # (a) f32, same weights: the kernels against the plain versions
     check_gap("mamba2 f32", logits_gap(params, dataclasses.replace(cfg, dtype="float32"),
                                        prompt, run["max_len"], registry, first), 1e-3)
@@ -1248,6 +1455,152 @@ def run_mamba(kernels, registry) -> dict:
     log(f"mamba2 bf16 logits rel L2 by depth, prefill / decode step (no limit): "
         + ", ".join(gaps))
     return runs
+
+
+# ---------------------------------------------------------------- families
+
+# (arch, layers kept (None: all), the first designs its shapes select): the
+# reference's other seven models at full width; chameleon-34b and
+# llama4-scout-17b-a16e at cut depth (f32 params of all 48 layers take 137 GB
+# and 431 GB). Layer index 3 is llama4's global-attention layer.
+FAMILIES = (
+    ("glm4-9b", None, ()),
+    ("minicpm-2b", None, ()),
+    ("minitron-8b", None, ()),
+    ("chameleon-34b", 12, ()),
+    ("llama4-scout-17b-a16e", 4, ()),
+    ("hymba-1.5b", None, ("rmsnorm",)),
+    ("whisper-small", None, ()),
+)
+
+
+def _prefill_attention_calls(cfg) -> int:
+    """Flash-attention calls of one prefill (whisper: its encoder layers
+    beside each decoder layer's self- and cross-attention)."""
+    return cfg.encoder_layers + cfg.num_layers * (2 if cfg.family == "encdec" else 1)
+
+
+def _layer_input(cfg, seed: int):
+    """A bf16 (BATCH, PROMPT, d) input for one block, and whisper's encoder
+    output (BATCH, encoder_seq, d), from a seeded card generator."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    h = randn(BATCH, PROMPT, cfg.d_model, dtype=torch.bfloat16, gen=g)
+    enc = (randn(BATCH, cfg.encoder_seq, cfg.d_model, dtype=torch.bfloat16, gen=g)
+           if cfg.family == "encdec" else None)
+    return h, enc
+
+
+def run_family(arch: str, layers: int | None, first_designs: tuple, kernels, registry) -> dict:
+    """One model of the families phase: serve it (the default continuous
+    server, every step a graph replay, one fixed group captured against
+    uncaptured), hold its launch counts to what its shapes select, then (a)
+    f32 logits, prefill and 3 decode steps, kernels against plain within
+    rel L2 1e-3 (llama4's plain run pinned to the kernel run's expert
+    choices); (b) layer 0 in bf16 within rel L2 2e-2; (c) the bf16
+    whole-model gap, printed with no limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = init_model(cfg)
+    run = serve_path(arch, arch, cfg, params, kernels, None, first_designs)
+    pre, dec = run["prefill"], run["decode"]
+    want_fa = TENANTS * _prefill_attention_calls(cfg)
+    if pre["flash_attention_sm90"] != want_fa:
+        raise AssertionError(f"{arch}: flash attention (TMA + wgmma) launched "
+                             f"{pre['flash_attention_sm90']} times in prefill, not {want_fa}")
+    if cfg.family == "encdec":
+        if pre["rmsnorm_sm90"] or dec["rmsnorm_sm90"]:
+            raise AssertionError(f"{arch}: RMSNorm launched in a LayerNorm model")
+    else:
+        need_both(run, "rmsnorm_sm90")
+    if cfg.num_experts:
+        if pre["grouped_matmul_sm90"] != TENANTS * 3 * cfg.num_layers:
+            raise AssertionError(f"{arch}: grouped matmul launched {pre['grouped_matmul_sm90']} "
+                                 f"times in prefill, not {3 * cfg.num_layers} a tenant")
+        if not dec["grouped_matmul_sm90"] > 0:
+            raise AssertionError(f"{arch}: grouped matmul never launched in decode")
+    if cfg.hybrid_ssm:
+        if pre["ssd_chunk_sm90"] != TENANTS * cfg.num_layers or dec["ssd_chunk_sm90"]:
+            raise AssertionError(f"{arch}: SSD launched {pre['ssd_chunk_sm90']} times in "
+                                 f"prefill (want {TENANTS * cfg.num_layers}) and "
+                                 f"{dec['ssd_chunk_sm90']} in decode (want 0)")
+        need_both(run, "rmsnorm")   # the first design, at d 1600
+
+    prompt, steps = run["prompts"][0], run["states"][0]["out"][:3]
+    moe_ctx = {}
+    if cfg.num_experts:   # the plain run takes the kernel run's expert choices
+        routes, own = [], []
+        moe_ctx = {"kernel_ctx": lambda: recorded_routing(routes),
+                   "plain_ctx": lambda: pinned_routing(routes, own)}
+    # (a) f32, same weights
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gap32 = logits_gap(params, cfg32, prompt, run["max_len"], registry, steps, **moe_ctx)
+    if cfg.num_experts:
+        diff, total = routing_diff(routes, own)
+        log(f"{arch} f32: the plain run's own router would pick {diff} of {total} top-"
+            f"{cfg.top_k} expert choices differently (pinned to the kernel run's)")
+    check_gap(f"{arch} f32", gap32, 1e-3)
+    # (b) bf16, layer 0 on one input
+    h, enc = _layer_input(cfg, 7)
+    pos = torch.arange(PROMPT, device="cuda", dtype=torch.int32)[None].expand(BATCH, PROMPT)
+    routes, own = [], []
+    kctx = (lambda: recorded_routing(routes)) if cfg.num_experts else contextlib.nullcontext
+    pctx = (lambda: pinned_routing(routes, own)) if cfg.num_experts else contextlib.nullcontext
+    with torch.no_grad():
+        with kctx():
+            out_k, _, _ = T.block_apply(params.layers[0], cfg, h, pos, layer_idx=0, enc_out=enc)
+        with pctx(), registry.kernel_mode_scope("ref"):
+            out_r, _, _ = T.block_apply(params.layers[0], cfg, h, pos, layer_idx=0, enc_out=enc)
+    layer_err = rel_l2(out_k, out_r)
+    log(f"{arch} bf16 layer 0{' (with cross-attention)' if enc is not None else ''}: rel L2 "
+        f"{layer_err:.3g} (max abs {(out_k.float() - out_r.float()).abs().max().item():.3g}); "
+        f"limit 2e-2")
+    if not (layer_err <= 2e-2 and torch.isfinite(out_k.float()).all()):
+        raise AssertionError(f"{arch} bf16 layer 0: kernels and plain versions disagree")
+    del h, enc, out_k, out_r
+    # (c) bf16 whole model: printed, no limit (llama4 unpinned: each run
+    # routes by its own router, and the choices that differ are counted)
+    routes, own = [], []
+    moe_ctx = ({"kernel_ctx": lambda: recorded_routing(routes),
+                "plain_ctx": lambda: recorded_routing(own)} if cfg.num_experts else {})
+    pre_gap, _, dec_gap, _ = logits_gap(params, cfg, prompt, run["max_len"], registry, steps,
+                                        **moe_ctx)
+    flips = routing_diff(routes, own) if cfg.num_experts else None
+    log(f"{arch} bf16 whole model (no limit): prefill logits rel L2 {pre_gap:.3g}, "
+        f"3 decode steps {dec_gap:.3g}"
+        + (f"; {flips[0]} of {flips[1]} top-{cfg.top_k} expert choices differ" if flips else ""))
+
+    nparams = sum(p.numel() for p in params.parameters())
+    del params, run["states"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"family {arch}: {seconds:.1f} s, peak device memory {peak:.2f} GiB; "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved after freeing the model")
+    if torch.cuda.memory_reserved() > RESERVED_LIMIT:
+        raise AssertionError(f"{arch}: more than 8 GiB reserved after freeing the model")
+    return {"layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+            "params": nparams, "seconds": seconds, "peak_gib": peak, **run["metrics"],
+            "launches": {"prefill": pre, "decode": dec}, "replayed": run["replayed"],
+            "f32_rel_l2": {"prefill": gap32[0], "decode": gap32[2]},
+            "bf16_layer0_rel_l2": layer_err,
+            "bf16_whole_model_rel_l2": {"prefill": pre_gap, "decode": dec_gap},
+            "bf16_expert_choices_differ": flips}
+
+
+def run_families(kernels, registry) -> dict:
+    """The families phase: each of FAMILIES in turn, the previous one freed."""
+    t0 = time.perf_counter()
+    out = {arch: run_family(arch, layers, first, kernels, registry)
+           for arch, layers, first in FAMILIES}
+    log(f"phase families: {time.perf_counter() - t0:.1f} s for {len(out)} models")
+    return out
 
 
 # ---------------------------------------------------------------- taskgraph
@@ -1893,6 +2246,7 @@ def main() -> int:
     for e in entries:
         if not e["name"].endswith("(first design)"):
             e.update(rules[e["name"]])
+    entries += check_new_shapes(rms, fa, gmm, ssd, ref, gen)
     log(f"phase 2 (kernels and their backward rules) took {time.perf_counter() - t0:.1f} s")
 
     kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm, "ssd": ssd}
@@ -1911,6 +2265,14 @@ def main() -> int:
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved after freeing the model")
         if torch.cuda.memory_reserved() > RESERVED_LIMIT:
             raise AssertionError(f"{family}: more than 8 GiB reserved after freeing the model")
+
+    # ---- the families: each model's path zeroes the counts just before it
+    # and reads them just after (serve_path)
+    families = run_families(kernels, registry)
+    for arch, fam in families.items():
+        runs[arch] = {k: fam["launches"]["prefill"][k] + fam["launches"]["decode"][k]
+                      for k in fam["launches"]["prefill"]}
+        replayed[arch] = fam["replayed"]
 
     # ---- the taskgraph path: counts zeroed just before, read just after
     for mod in kernels.values():
@@ -1936,7 +2298,7 @@ def main() -> int:
     for e in entries:
         src = Path(e["source"]).stem
         e["launches_by_path"] = {label: counts[src] for label, counts in runs.items()}
-        symbol = {"rmsnorm_sm90": "rmsnorm_sm90_kernel",
+        symbol = {"rmsnorm_sm90": "rmsnorm_sm90_kernel", "rmsnorm": "rmsnorm_kernel",
                   "grouped_matmul_sm90": "gmm_sm90_kernel"}.get(src)
         e["decode_round_replay_launches"] = {   # one profiled round, from its trace
             label: r[symbol] for label, r in replayed.items() if symbol in r}
@@ -1947,6 +2309,7 @@ def main() -> int:
     log(json.dumps({"kernels": entries, "card": card}))
     log(json.dumps({"taskgraph": taskgraph, "card": card}))
     log(json.dumps({"training": training, "card": card}))
+    log(json.dumps({"families": families, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

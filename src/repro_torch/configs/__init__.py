@@ -1,8 +1,10 @@
 """Architecture registry: ``get_config(arch_id)``.
 
-Ported so far: the dense ``qwen2.5-3b``, the MoE ``qwen3-moe-30b-a3b`` and
-the SSM ``mamba2-370m``; the other architectures of the reference wait on
-their model families (see ROADMAP.md). :func:`register` adds a config
+The reference's ten architectures: dense (``qwen2.5-3b``, ``glm4-9b``,
+``minicpm-2b``, ``minitron-8b``), VLM (``chameleon-34b``, dense with
+qk-norm), MoE (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``), SSM
+(``mamba2-370m``), hybrid attention ∥ SSM (``hymba-1.5b``) and
+encoder-decoder (``whisper-small``). :func:`register` adds a config
 under a name of its own (an example's model), which :func:`get_config` and
 :func:`archs` then know.
 """
@@ -16,6 +18,13 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mamba2-370m": "mamba2_370m",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "glm4-9b": "glm4_9b",
+    "minitron-8b": "minitron_8b",
+    "minicpm-2b": "minicpm_2b",
+    "whisper-small": "whisper_small",
+    "hymba-1.5b": "hymba_1_5b",
+    "chameleon-34b": "chameleon_34b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

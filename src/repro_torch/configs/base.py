@@ -1,6 +1,6 @@
-"""Model configuration: the subset of ``repro.configs.base`` that the ported
-families use (dense, MoE and SSM; swiglu MLPs, optional qk-norm) and the
-training knobs ``remat`` and ``loss_chunk``.
+"""Model configuration: the fields of ``repro.configs.base`` that the ported
+families use (dense, MoE, SSM, hybrid, encoder-decoder and VLM; swiglu,
+gelu and relu² MLPs) and the training knobs ``remat`` and ``loss_chunk``.
 
 Configs are plain frozen dataclasses, as in the reference. Dtypes are kept
 as names (``"bfloat16"``, ``"float32"``) so a config stays hashable and
@@ -39,6 +39,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0              # GLM partial rotary
 
+    # MLP
+    mlp: Literal["swiglu", "gelu", "relu2"] = "swiglu"
+
     # MoE
     num_experts: int = 0
     top_k: int = 0
@@ -60,6 +63,10 @@ class ModelConfig:
     # hybrid (Hymba): SSM runs in parallel with attention inside each block
     hybrid_ssm: bool = False
 
+    # encoder-decoder (Whisper): stub conv frontend supplies frame embeddings
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+
     # embeddings / scaling (MiniCPM mu-parametrization)
     tie_embeddings: bool = False
     embed_scale: float = 1.0
@@ -69,6 +76,7 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"                 # activation/compute dtype
     param_dtype: str = "float32"
+    attn_q_chunk: int = 2048                # q-chunking of full attention (plain path)
 
     # training
     remat: Literal["none", "full", "dots"] = "full"   # per-block recompute
@@ -126,6 +134,8 @@ def reduced(config: ModelConfig, **overrides) -> ModelConfig:
         ssm_state=min(config.ssm_state, 16) if config.ssm_state else 0,
         ssm_headdim=16,
         ssm_chunk=16,
+        encoder_layers=2 if config.encoder_layers else 0,
+        encoder_seq=24 if config.encoder_layers else 1500,
         remat="none",
         dtype="float32",
         loss_chunk=0,

@@ -5,8 +5,12 @@ modes wait for the cluster tier, ROADMAP.md queue A item 14). Runs on the
 CUDA card; ``--device cpu`` is the only way onto the CPU, and with no card
 and no ``--device cpu`` it raises.
 
-``--arch`` is one of the ported configs: ``qwen2.5-3b`` (dense),
-``qwen3-moe-30b-a3b`` (MoE) and ``mamba2-370m`` (SSM).
+``--arch`` is any of the reference's ten configs: dense ``qwen2.5-3b``,
+``glm4-9b``, ``minicpm-2b`` and ``minitron-8b``; VLM ``chameleon-34b``;
+MoE ``qwen3-moe-30b-a3b`` and ``llama4-scout-17b-a16e``; SSM
+``mamba2-370m``; hybrid ``hymba-1.5b``; encoder-decoder ``whisper-small``,
+whose prompts come with random frame embeddings (B, 1500, d) from the
+run's seed (the conv frontend is a stub, as in the reference).
 
 * **Single-stream** (default): one prompt batch, prefill, then a greedy
   decode loop.
@@ -26,9 +30,11 @@ and no ``--device cpu`` it raises.
       PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
           --server --tenants 4
 
-``--smoke`` runs the reduced config (2 layers, d_model 64). The full
-qwen3-moe-30b-a3b keeps f32 params (122 GB at 48 layers), so on one 80 GB
-card pass ``--layers 16``.
+``--smoke`` runs the reduced config (2 layers, d_model 64). Params are
+f32, so on one 80 GB card the largest configs need their depth cut:
+``--layers 16`` for qwen3-moe-30b-a3b (122 GB at 48 layers), ``--layers
+12`` for chameleon-34b (137 GB at 48) and ``--layers 4`` for
+llama4-scout-17b-a16e (layer index 3 is its global-attention layer).
 """
 from __future__ import annotations
 
@@ -62,12 +68,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prompt_tokens(cfg, batch: int, prompt_len: int, seed: int,
-                  device: torch.device) -> torch.Tensor:
-    """Random prompt ids in [2, vocab) from a CPU generator seeded ``seed``."""
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int,
+                 device: torch.device) -> dict:
+    """A prefill batch from a CPU generator seeded ``seed``: ``tokens``,
+    random ids in [2, vocab), and for encdec ``frames`` (batch, encoder_seq,
+    d_model), f32 normals (the stub frontend's frame embeddings)."""
     g = torch.Generator().manual_seed(seed)
-    return torch.randint(2, cfg.vocab_size, (batch, prompt_len), generator=g,
-                         dtype=torch.int32).to(device)
+    out = {"tokens": torch.randint(2, cfg.vocab_size, (batch, prompt_len), generator=g,
+                                   dtype=torch.int32).to(device)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                    generator=g).to(device)
+    return out
 
 
 def _print_kernels() -> None:
@@ -77,10 +89,10 @@ def _print_kernels() -> None:
 
 
 def _run_single_stream(args, cfg, params, device) -> int:
-    tokens = prompt_tokens(cfg, args.batch, args.prompt_len, args.seed + 1, device)
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed + 1, device)
     max_len = args.prompt_len + args.gen
     t0 = time.time()
-    logits, caches, pos = prefill(params, cfg, {"tokens": tokens}, max_len=max_len)
+    logits, caches, pos = prefill(params, cfg, batch, max_len=max_len)
     _sync(device)
     t_prefill = time.time() - t0
 
@@ -131,10 +143,9 @@ def _run_server(args, cfg, params, device) -> int:
     states = []
     t0 = time.time()
     for i in range(args.tenants):
-        tokens = prompt_tokens(cfg, args.batch, args.prompt_len, args.seed + 1 + i,
-                               device)
-        logits, caches, pos = prefill(params, cfg, {"tokens": tokens},
-                                      max_len=max_len)
+        batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed + 1 + i,
+                             device)
+        logits, caches, pos = prefill(params, cfg, batch, max_len=max_len)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         states.append({"tok": tok, "pos": pos, "caches": caches, "out": [tok]})
     _sync(device)

@@ -83,6 +83,9 @@ def run(argv=None):
 
     def step_fn(state: RunState, batch):
         b = {"tokens": torch.from_numpy(batch["tokens"]).to(device)}
+        if cfg.family == "encdec":   # the stub frontend's frames, zeros as in the reference
+            b["frames"] = torch.zeros((b["tokens"].shape[0], cfg.encoder_seq, cfg.d_model),
+                                      dtype=cfg.compute_dtype, device=device)
         p, s, metrics = step_fn_raw(state.params, state.opt_state, b)
         return RunState(p, s, state.step), metrics
 

@@ -1,8 +1,8 @@
 """Building blocks: ``nn.Module`` parameter holders and plain apply functions.
 
-Port of the subset of ``repro.models.layers`` that the ported decoders
-run: GQA attention with optional qk-norm (qwen3-moe) and the swiglu MLP;
-the gelu/relu² MLPs come with the configs that use them. Each module
+Port of ``repro.models.layers``: linear, RMSNorm and LayerNorm, embeddings,
+sinusoidal positions, RoPE, GQA attention (self or cross, optional qk-norm)
+and the swiglu / gelu / relu² MLPs. Each module
 holds the parameters the reference keeps in a pytree dict, under the same
 names (``Linear.w`` is ``(d_in, d_out)`` as in JAX, so ``y = x @ w``);
 each ``*_apply`` / ``linear`` / ``rmsnorm`` is a plain function of a
@@ -79,6 +79,22 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ops.rmsnorm(x, p.scale, eps=eps)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.scale = _param(d, dtype=dtype, device=device, fill=1.0)
+        self.bias = _param(d, dtype=dtype, device=device, fill=0.0)
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Plain LayerNorm in f32 (the reference's is plain jnp, no kernel)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale.float() + p.bias.float()).to(x.dtype)
+
+
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, dtype=torch.float32, device=None):
         super().__init__()
@@ -95,6 +111,22 @@ def embed(p: Embedding, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
 def unembed(p: Embedding, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Logits in f32 (softmax stability)."""
     return torch.matmul(x.to(compute_dtype), p.table.to(compute_dtype).t()).float()
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., S) int positions -> (..., S, d) f32 sinusoids: sin of the first
+    d / 2 frequencies, then cos. Made on the positions' device (a captured
+    decode step copies nothing in from the host)."""
+    pos = positions.float()[..., None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    base = torch.full((), 10000.0, dtype=torch.float32, device=positions.device)
+    ang = pos / torch.pow(base, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) sinusoids of positions 0..seq-1 (the encoder's)."""
+    return sinusoidal_at(torch.arange(seq, device=device), d)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +159,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    """``cross=True``: the decoder's cross-attention, which has no qk-norm."""
+
+    def __init__(self, cfg: ModelConfig, device=None, cross: bool = False):
         super().__init__()
         d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         dt = cfg.param_torch_dtype
@@ -135,8 +169,9 @@ class Attention(nn.Module):
         self.wk = Linear(d, Hkv * hd, bias=cfg.qkv_bias, dtype=dt, device=device)
         self.wv = Linear(d, Hkv * hd, bias=cfg.qkv_bias, dtype=dt, device=device)
         self.wo = Linear(H * hd, d, dtype=dt, device=device)
-        self.qnorm = RMSNorm(hd, dt, device) if cfg.qk_norm else None
-        self.knorm = RMSNorm(hd, dt, device) if cfg.qk_norm else None
+        qk_norm = cfg.qk_norm and not cross
+        self.qnorm = RMSNorm(hd, dt, device) if qk_norm else None
+        self.knorm = RMSNorm(hd, dt, device) if qk_norm else None
 
 
 def layer_attn_pattern(cfg: ModelConfig, layer_idx: int) -> tuple[str, int]:
@@ -154,28 +189,37 @@ def layer_attn_pattern(cfg: ModelConfig, layer_idx: int) -> tuple[str, int]:
 def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, pattern: str = "full",
                     span: int = 0, causal: bool = True,
-                    cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+                    kv_x: torch.Tensor | None = None,
+                    kv_positions: torch.Tensor | None = None,
+                    cache: dict | None = None,
+                    use_rope: bool = True) -> tuple[torch.Tensor, dict | None]:
+    """Self-attention over ``x``, or cross-attention from ``kv_x`` (never
+    causal: the reference passes ``causal and kv_x is None``)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cdt = cfg.compute_dtype
 
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
     q = linear(p.wq, x, cdt).reshape(B, S, H, hd)
-    k = linear(p.wk, x, cdt).reshape(B, S, Hkv, hd)
-    v = linear(p.wv, x, cdt).reshape(B, S, Hkv, hd)
+    k = linear(p.wk, src, cdt).reshape(B, Skv, Hkv, hd)
+    v = linear(p.wv, src, cdt).reshape(B, Skv, Hkv, hd)
     if p.qnorm is not None:
         q = rmsnorm(p.qnorm, q)
         k = rmsnorm(p.knorm, k)
-    if cfg.rope_theta > 0:
+    if use_rope and cfg.rope_theta > 0:
         q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-        k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        kpos = positions if kv_positions is None else kv_positions
+        k = apply_rope(k, kpos, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
 
     if cache is not None:
         out, cache = _cached_attention(cfg, q, k, v, positions, cache,
                                        pattern=pattern, span=span)
     else:
-        out = ops.attention(q, k, v, causal=causal,
+        out = ops.attention(q, k, v, causal=causal and kv_x is None,
                             window=span if pattern == "sliding" else None,
-                            chunk=span if pattern == "chunked" else None)
+                            chunk=span if pattern == "chunked" else None,
+                            q_chunk=cfg.attn_q_chunk)
     return linear(p.wo, out.reshape(B, S, H * hd), cdt), cache
 
 
@@ -239,20 +283,29 @@ def _cached_attention(cfg, q, k_new, v_new, positions, cache, *,
 
 
 # ---------------------------------------------------------------------------
-# MLP (swiglu)
+# MLP (swiglu / gelu / relu^2)
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
+    """``up`` and ``down``; swiglu alone has a ``gate``."""
+
     def __init__(self, cfg: ModelConfig, device=None, d_ff: int | None = None):
         super().__init__()
         d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.param_torch_dtype
         self.up = Linear(d, f, dtype=dt, device=device)
         self.down = Linear(f, d, dtype=dt, device=device)
-        self.gate = Linear(d, f, dtype=dt, device=device)
+        self.gate = Linear(d, f, dtype=dt, device=device) if cfg.mlp == "swiglu" else None
 
 
 def mlp_apply(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The activation in f32. gelu is the tanh approximation, which is what
+    ``jax.nn.gelu`` computes by default."""
     cdt = cfg.compute_dtype
-    up = linear(p.up, x, cdt)
-    act = F.silu(linear(p.gate, x, cdt).float())
-    return linear(p.down, (act * up.float()).to(cdt), cdt)
+    up = linear(p.up, x, cdt).float()
+    if cfg.mlp == "swiglu":
+        h = F.silu(linear(p.gate, x, cdt).float()) * up
+    elif cfg.mlp == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    else:  # relu2 (Nemotron)
+        h = torch.relu(up) ** 2
+    return linear(p.down, h.to(cdt), cdt)

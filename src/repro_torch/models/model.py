@@ -1,6 +1,7 @@
 """Model API: init / forward / loss (training) and prefill / decode (serving).
 
-Port of ``repro.models.model`` for the dense, MoE and SSM families. The
+Port of ``repro.models.model`` for every family (Whisper's encoder runs
+over stub frame embeddings, ``batch["frames"]``, as in the reference). The
 decode step is the payload that the taskgraph runtime records and replays:
 shape stable and free of side effects (caches are returned, never written
 in place), so one step can be ``torch.func.vmap``-ed across tenants.
@@ -33,8 +34,9 @@ from . import transformer as T
 
 class Model(nn.Module):
     """Parameter tree of the reference (``embed``, ``layers``, ``final_norm``,
-    ``head`` when untied); the layer index is the ModuleList index where the
-    reference stacks a leading ``L`` axis. Entries are uninitialized until
+    ``head`` when untied, ``encoder`` and ``enc_norm`` for encdec); the layer
+    index is the ModuleList index where the reference stacks a leading ``L``
+    axis. Entries are uninitialized until
     :func:`init_params` or :func:`params_from_jax` fills them. ``device``
     is required: the model is built where the caller says, never on a
     default device."""
@@ -44,9 +46,13 @@ class Model(nn.Module):
         dt = cfg.param_torch_dtype
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, dt, device)
         self.layers = nn.ModuleList(T.Block(cfg, device) for _ in range(cfg.num_layers))
-        self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
+        self.final_norm = T.norm_module(cfg, cfg.d_model, device)
         self.head = (None if cfg.tie_embeddings
                      else L.Embedding(cfg.padded_vocab, cfg.d_model, dt, device))
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(T.EncoderBlock(cfg, device)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = T.norm_module(cfg, cfg.d_model, device)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Model:
@@ -69,17 +75,19 @@ def flatten_jax(np_tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, np.nd
     """A tree of the reference's parameter structure (params, or AdamW's
     ``mu`` / ``nu``) as numpy arrays -> {port name: array}.
 
-    Layers are stacked on a leading ``L`` axis in JAX: ``layers.3.attn.wq.w``
-    takes ``np_tree["layers"]["attn"]["wq"]["w"][3]``, and likewise
-    ``layers.*.moe.router.w``, ``layers.*.moe.experts.{up,gate,down}.w``,
-    ``layers.*.attn.{qnorm,knorm}.scale``, ``layers.*.ssm.*`` and ``head``.
+    The decoder's and the encoder's layers are stacked on a leading ``L``
+    axis in JAX: ``layers.3.attn.wq.w`` takes
+    ``np_tree["layers"]["attn"]["wq"]["w"][3]`` and ``encoder.1.mlp.up.w``
+    ``np_tree["encoder"]["mlp"]["up"]["w"][1]``; every other name is its
+    path in the tree (``enc_norm.bias``, ``layers.*.cross.wk.b``,
+    ``layers.*.ssm.x_proj.w``, ``layers.*.attn_out_norm.scale``, ...).
     """
     out = {}
     for name, prm in _skeleton(cfg).named_parameters():
         path = name.split(".")
         layer = None
-        if path[0] == "layers":
-            layer, path = int(path[1]), ["layers"] + path[2:]
+        if path[0] in ("layers", "encoder"):
+            layer, path = int(path[1]), [path[0]] + path[2:]
         node = np_tree
         for key in path:
             node = node[key]
@@ -174,8 +182,22 @@ def param_count(params) -> int:
 # Forward
 # ---------------------------------------------------------------------------
 
+def encode(params: Model, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, Se, d): sinusoidal
+    positions, the encoder blocks, the encoder's final norm."""
+    x = frames.to(cfg.compute_dtype)
+    x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    x = T.encoder_stack(params.encoder, cfg, x)
+    return T.norm(cfg, params.enc_norm, x)
+
+
+def _enc_out(params: Model, cfg: ModelConfig, batch: dict) -> torch.Tensor | None:
+    return encode(params, cfg, batch["frames"]) if cfg.family == "encdec" else None
+
+
 def hidden_states(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
-                  positions: torch.Tensor | None = None, mode: str = "train",
+                  positions: torch.Tensor | None = None,
+                  enc_out: torch.Tensor | None = None, mode: str = "train",
                   caches: list | None = None):
     """Returns (final-norm hidden states, summed MoE aux loss, caches)."""
     B, Sq = tokens.shape
@@ -183,9 +205,12 @@ def hidden_states(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(Sq, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, Sq)
     x = L.embed(params.embed, tokens, cfg.compute_dtype) * cfg.embed_scale
+    if cfg.family == "encdec" and cfg.rope_theta <= 0:
+        # absolute sinusoidal positions at the (possibly decode) positions
+        x = x + L.sinusoidal_at(positions, cfg.d_model).to(x.dtype)
     x, aux, caches = T.decoder_stack(params.layers, cfg, x, positions, mode=mode,
-                                     caches=caches)
-    return L.rmsnorm(params.final_norm, x), aux, caches
+                                     caches=caches, enc_out=enc_out)
+    return T.norm(cfg, params.final_norm, x), aux, caches
 
 
 def _logits(params: Model, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -199,8 +224,9 @@ def _logits(params: Model, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tens
 
 def forward(params: Model, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full logits (B, S, V) and the MoE aux loss; use :func:`loss_fn` for
-    training (chunked CE)."""
-    h, aux, _ = hidden_states(params, cfg, batch["tokens"])
+    training (chunked CE). encdec reads ``batch["frames"]`` (B, Se, d)."""
+    h, aux, _ = hidden_states(params, cfg, batch["tokens"],
+                              enc_out=_enc_out(params, cfg, batch))
     return _logits(params, cfg, h), aux
 
 
@@ -233,10 +259,10 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict):
     chunks whose logits are recomputed in the backward pass
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so the
     full logits never exist at once. ``batch["loss_mask"]`` (optional)
-    multiplies the mask.
+    multiplies the mask; encdec reads ``batch["frames"]``.
     """
     tokens = batch["tokens"]
-    h, aux, _ = hidden_states(params, cfg, tokens)
+    h, aux, _ = hidden_states(params, cfg, tokens, enc_out=_enc_out(params, cfg, batch))
     labels, mask = shifted_labels(tokens)
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"].float()
@@ -264,20 +290,32 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict):
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: torch.device | str) -> list:
     """Per layer: ``{"ssm": {"conv", "ssd"}}`` (SSM family) or
-    ``{"attn": {"k", "v", "pos"}}``."""
-    if cfg.family == "ssm":
-        return [{"ssm": S.init_ssm_state(cfg, batch, device)}
-                for _ in range(cfg.num_layers)]
-    return [{"attn": L.init_attn_cache(cfg, i, batch, max_len, device)}
-            for i in range(cfg.num_layers)]
+    ``{"attn": {"k", "v", "pos"}}``, with ``"ssm"`` beside it for hybrid and
+    ``"cross_kv": {"k", "v"}`` (B, encoder_seq, Hkv, hd) for encdec."""
+    caches = []
+    for i in range(cfg.num_layers):
+        if cfg.family == "ssm":
+            caches.append({"ssm": S.init_ssm_state(cfg, batch, device)})
+            continue
+        c = {"attn": L.init_attn_cache(cfg, i, batch, max_len, device)}
+        if cfg.hybrid_ssm:
+            c["ssm"] = S.init_ssm_state(cfg, batch, device)
+        if cfg.family == "encdec":
+            shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+            c["cross_kv"] = {k: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+                             for k in ("k", "v")}
+        caches.append(c)
+    return caches
 
 
 def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int):
-    """Process the prompt; returns (last-token logits, caches, next_pos)."""
+    """Process the prompt (and, for encdec, ``batch["frames"]``); returns
+    (last-token logits, caches, next_pos)."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     caches = init_caches(cfg, B, max_len, tokens.device)
-    h, _, caches = hidden_states(params, cfg, tokens, mode="prefill", caches=caches)
+    h, _, caches = hidden_states(params, cfg, tokens, enc_out=_enc_out(params, cfg, batch),
+                                 mode="prefill", caches=caches)
     logits = _logits(params, cfg, h[:, -1:])
     return logits, caches, torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
 

@@ -2,10 +2,12 @@
 intra-chunk kernel on the card), the decode path through the O(1)
 single-step recurrence on a carried state.
 
-Port of ``repro.models.ssm`` for the fused ``in_proj`` layout that the
-ported configs use: in_proj -> [z | xBC | dt]; causal conv over xBC; SSD
-over heads; gated RMSNorm; out_proj. The split-projection layout
-(``ssm_split_proj``) is not ported (ROADMAP.md).
+Port of ``repro.models.ssm``: in_proj -> [z | xBC | dt]; causal conv over
+xBC; SSD over heads; gated RMSNorm; out_proj. With ``ssm_split_proj`` the
+projections are separate (``z_proj``, ``x_proj``, ``b_proj``, ``c_proj``,
+``dt_proj``) and so are the depthwise convs (``xconv``, ``bconv``,
+``cconv``), whose histories make one conv state, concatenated in that
+order: the same function as the fused layout with its weights split.
 """
 from __future__ import annotations
 
@@ -41,15 +43,12 @@ class CausalConv(nn.Module):
 
 class SSM(nn.Module):
     """``A_log = 0`` (A = -1), ``D = 1`` and ``dt_bias = -2`` (softplus ≈ 0.12)
-    at init, as in the reference; ``in_proj``, ``conv``, ``norm`` and
-    ``out_proj`` under the reference's names."""
+    at init, as in the reference; ``in_proj`` and ``conv`` (or the split
+    projections and convs), ``norm`` and ``out_proj`` under the reference's
+    names."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.ssm_split_proj:
-            raise NotImplementedError(
-                "ssm_split_proj (separate z/x/B/C/dt projections) is not ported "
-                "yet (ROADMAP.md); the port runs the fused in_proj layout")
         dd = ssm_dims(cfg)
         dt = cfg.param_torch_dtype
         H = dd["heads"]
@@ -58,8 +57,15 @@ class SSM(nn.Module):
         self.dt_bias = L._param(H, dtype=dt, device=device, fill=-2.0)
         self.norm = L.RMSNorm(dd["d_inner"], dt, device)
         self.out_proj = L.Linear(dd["d_inner"], cfg.d_model, dtype=dt, device=device)
-        self.in_proj = L.Linear(cfg.d_model, dd["in_dim"], dtype=dt, device=device)
-        self.conv = CausalConv(dd["K"], dd["conv_ch"], dt, device)
+        if cfg.ssm_split_proj:
+            dm, di, gn = cfg.d_model, dd["d_inner"], dd["groups"] * dd["N"]
+            for name, width in (("z", di), ("x", di), ("b", gn), ("c", gn), ("dt", H)):
+                setattr(self, f"{name}_proj", L.Linear(dm, width, dtype=dt, device=device))
+            for name, width in (("x", di), ("b", gn), ("c", gn)):
+                setattr(self, f"{name}conv", CausalConv(dd["K"], width, dt, device))
+        else:
+            self.in_proj = L.Linear(cfg.d_model, dd["in_dim"], dtype=dt, device=device)
+            self.conv = CausalConv(dd["K"], dd["conv_ch"], dt, device)
 
 
 def _split_in(cfg: ModelConfig, proj: torch.Tensor):
@@ -91,12 +97,28 @@ def ssm_apply(p: SSM, cfg: ModelConfig, x: torch.Tensor,
     H, Pd, G, N, di = dd["heads"], dd["P"], dd["groups"], dd["N"], dd["d_inner"]
     cdt = cfg.compute_dtype
 
-    proj = L.linear(p.in_proj, x, cdt)
-    z, xBC, dt_raw = _split_in(cfg, proj)
-    xBC, new_conv = _causal_conv(p.conv, xBC, state["conv"] if state is not None else None)
-    xin = xBC[..., :di].reshape(Bz, S, H, Pd)
-    Bm = xBC[..., di:di + G * N].reshape(Bz, S, G, N)
-    Cm = xBC[..., di + G * N:].reshape(Bz, S, G, N)
+    conv_state = state["conv"] if state is not None else None
+    if cfg.ssm_split_proj:
+        z = L.linear(p.z_proj, x, cdt)
+        dt_raw = L.linear(p.dt_proj, x, cdt)
+        cuts = (0, di, di + G * N, di + 2 * G * N)
+        outs, hists = [], []
+        for name, lo, hi in zip("xbc", cuts, cuts[1:]):
+            part = L.linear(getattr(p, f"{name}_proj"), x, cdt)
+            part, hist = _causal_conv(getattr(p, f"{name}conv"), part,
+                                      None if conv_state is None else conv_state[..., lo:hi])
+            outs.append(part)
+            hists.append(hist)
+        new_conv = torch.cat(hists, dim=-1)
+        xr, br, cr = outs
+    else:
+        proj = L.linear(p.in_proj, x, cdt)
+        z, xBC, dt_raw = _split_in(cfg, proj)
+        xBC, new_conv = _causal_conv(p.conv, xBC, conv_state)
+        xr, br, cr = xBC[..., :di], xBC[..., di:di + G * N], xBC[..., di + G * N:]
+    xin = xr.reshape(Bz, S, H, Pd)
+    Bm = br.reshape(Bz, S, G, N)
+    Cm = cr.reshape(Bz, S, G, N)
     dt = F.softplus(dt_raw.float() + p.dt_bias.float())       # (B, S, H)
     A = -torch.exp(p.A_log.float())
 

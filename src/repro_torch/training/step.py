@@ -67,13 +67,15 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
     return t.detach().requires_grad_()
 
 
-def _head_ce(cfg: ModelConfig, norm_scale, table, xn, toks) -> torch.Tensor:
-    """The region's CE of the final hidden state: final norm, unembed and a
+def _head_ce(cfg: ModelConfig, final_norm: dict, table, xn, toks) -> torch.Tensor:
+    """The region's CE of the final hidden state: final norm (the family's:
+    ``final_norm`` holds its ``final_norm.*`` tensors), unembed and a
     log-softmax over ALL padded_vocab columns. Unlike the fused step's
     ``_logits`` it does not mask the pad columns (vocab_size..padded_vocab),
     as the reference's ``head_loss`` / ``head_bwd`` do not; the two agree
     where vocab_size is a multiple of 256."""
-    h = L.rmsnorm(types.SimpleNamespace(scale=norm_scale), xn)
+    norm = types.SimpleNamespace(**{k.split(".")[-1]: v for k, v in final_norm.items()})
+    h = T.norm(cfg, norm, xn)
     logits = L.unembed(types.SimpleNamespace(table=table), h,
                        cfg.compute_dtype) * cfg.logit_scale
     labels, mask = M.shifted_labels(toks)
@@ -87,9 +89,16 @@ def make_tdg_train_region(cfg: ModelConfig, optimizer: Optimizer,
     """Build the per-layer task region. Buffers:
     in : params (name -> tensor dict), opt_state, tokens
     out: params, opt_state, loss
+
+    As in the reference, the region runs the decoder alone: it passes no
+    encoder output (an encdec block then skips its cross-attention), and
+    the parameters no task reaches (the encoder's, the cross-attention's)
+    get zero gradients.
     """
     n = cfg.num_layers
     table_key = "embed.table" if cfg.tie_embeddings else "head.table"
+    norm_keys = [f"final_norm.{k}" for k, _ in
+                 M._skeleton(cfg).final_norm.named_parameters()]
 
     def layer_params(p: dict, i: int) -> dict:
         prefix = f"layers.{i}."
@@ -120,7 +129,7 @@ def make_tdg_train_region(cfg: ModelConfig, optimizer: Optimizer,
         def head_loss(p, xn, toks, *auxes):
             with torch.enable_grad():
                 xn_ = _leaf(xn)
-                ce = _head_ce(cfg, p["final_norm.scale"], p[table_key], xn_, toks)
+                ce = _head_ce(cfg, {k: p[k] for k in norm_keys}, p[table_key], xn_, toks)
                 (gxn,) = torch.autograd.grad(ce, xn_)
             loss = ce.detach() + sum(auxes)
             return loss, gxn
@@ -131,10 +140,10 @@ def make_tdg_train_region(cfg: ModelConfig, optimizer: Optimizer,
         # head/final_norm param grads (recompute VJP; pad columns unmasked too)
         def head_bwd(p, xn, toks):
             with torch.enable_grad():
-                fn_, tab_ = _leaf(p["final_norm.scale"]), _leaf(p[table_key])
+                fn_, tab_ = {k: _leaf(p[k]) for k in norm_keys}, _leaf(p[table_key])
                 ce = _head_ce(cfg, fn_, tab_, xn, toks)
-                gfn, gtab = torch.autograd.grad(ce, [fn_, tab_])
-            return gfn, gtab
+                *gfn, gtab = torch.autograd.grad(ce, [*fn_.values(), tab_])
+            return dict(zip(norm_keys, gfn)), gtab
         g.task(head_bwd, ins=["params", f"x{n}", "tokens"],
                outs=["g_final_norm", "g_table"], name="head_bwd")
 
@@ -175,12 +184,12 @@ def make_tdg_train_region(cfg: ModelConfig, optimizer: Optimizer,
 
         # assemble grads (in the params' key order) + optimizer update
         def opt_update(p, s, gemb, ghead, gfn, *glayers):
-            found = {"embed.table": gemb, "final_norm.scale": gfn}
+            found = {"embed.table": gemb, **gfn}
             if not cfg.tie_embeddings:
                 found["head.table"] = ghead
             for gl in glayers:
                 found.update(gl)
-            grads = {k: found[k] for k in p}
+            grads = {k: found[k] if k in found else torch.zeros_like(v) for k, v in p.items()}
             updates, s2, _m = optimizer.update(grads, s, p)
             return apply_updates(p, updates), s2
         g.task(opt_update,

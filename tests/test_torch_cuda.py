@@ -8,9 +8,15 @@ installed. On the card, from the repository root:
 (``--noconftest``: the shared ``tests/conftest.py`` imports the JAX package.)
 Each kernel is held against its plain version (atol = rtol = 2e-5 in f32,
 2e-2 in bf16; grouped matmul at atol = TOL·d, rtol = TOL; SSD at 1e-3),
-under ``torch.func.vmap`` too, and the reduced models of the three ported
-families are run with the kernels and with the plain versions; the MoE
-layer at full width gives the same bits on every run. Each
+under ``torch.func.vmap`` too, and the reduced models of all ten configs
+are run with the kernels and with the plain versions; the MoE layer at
+full width gives the same bits on every run. The kernels are also held at
+the shapes the other seven models give them (whisper's non-causal and
+cross-attention over 1500 frames, hymba's windowed GQA 5, the first-design
+RMSNorm at d 1600, llama4's grouped matmul, hymba's SSD), with one
+full-width hymba block and one whisper decoder block in bf16 (relative L2
+2e-2), and a captured whisper decode step bitwise equal to an uncaptured
+one. Each
 attention, grouped-matmul, RMSNorm and SSD case of the redesigned kernels
 also checks that the kernel ``kernel_for`` picks (TMA + wgmma, rows in
 registers, 3xTF32 tensor cores at the shapes they take; the first design
@@ -24,11 +30,13 @@ the server's steps are captured from its scheduler thread while client
 threads keep issuing device ops, give what the uncaptured steps give, and a
 failed capture fails a batch without counting as a fallback.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ref, registry  # noqa: E402
@@ -261,19 +269,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ssd_scan.ssd_intra_chunk(xs, xs, xs, xs[..., 0], 256)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_model_kernels_match_plain_versions(arch):
+    from repro_torch.launch.serve import prompt_batch
+
     cfg = reduced(get_config(arch))
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    tokens = torch.randint(2, cfg.vocab_size, (2, 40), device="cuda",
-                           generator=torch.Generator("cuda").manual_seed(1))
+    batch = prompt_batch(cfg, 2, 40, 1, "cuda")
     with torch.no_grad():
-        got = M.greedy_decode(params, cfg, {"tokens": tokens}, 5, 48)
+        got = M.greedy_decode(params, cfg, batch, 5, 48)
         with registry.kernel_mode_scope("ref"):
-            want = M.greedy_decode(params, cfg, {"tokens": tokens}, 5, 48)
-        logits, _, _ = M.prefill(params, cfg, {"tokens": tokens}, 48)
+            want = M.greedy_decode(params, cfg, batch, 5, 48)
+        logits, _, _ = M.prefill(params, cfg, batch, 48)
         with registry.kernel_mode_scope("ref"):
-            logits_ref, _, _ = M.prefill(params, cfg, {"tokens": tokens}, 48)
+            logits_ref, _, _ = M.prefill(params, cfg, batch, 48)
     torch.testing.assert_close(logits, logits_ref, atol=1e-4, rtol=1e-4)
     assert torch.equal(got, want)
 
@@ -293,6 +302,149 @@ def test_moe_layer_gives_the_same_bits_every_run():
         outs = [moe.moe_apply(layer, cfg, x)[0] for _ in range(4)]
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
+
+
+# ------------------------------------------- the served models' new shapes
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,kw", [
+    (4, 1500, 1500, 12, 12, {"causal": False}),     # whisper's encoder: 11 key tiles + 92
+    (4, 512, 1500, 12, 12, {"causal": False}),      # whisper's cross-attention at prefill
+    (4, 2048, 2048, 25, 5, {"window": 1024}),       # hymba: GQA 5 under its window
+    (4, 512, 512, 36, 36, {})])                     # minicpm: MHA at head dim 64
+def test_flash_attention_at_the_new_models_shapes(B, Sq, Sk, Hq, Hkv, kw):
+    g = torch.Generator("cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    q = _randn(g, B, Sq, Hq, 64, dtype=bf16)
+    k, v = _randn(g, B, Sk, Hkv, 64, dtype=bf16), _randn(g, B, Sk, Hkv, 64, dtype=bf16)
+    got = _one_launch_of(fa, fa.KERNELS[0], lambda: fa.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, **kw).float(),
+                               atol=TOL[bf16], rtol=TOL[bf16])
+
+
+def test_rmsnorm_at_hymba_width_takes_the_first_design():
+    g = torch.Generator("cuda").manual_seed(0)
+    x, w = _randn(g, 2048, 1600, dtype=torch.bfloat16), _randn(g, 1600)
+    got = _one_launch_of(rms, rms.KERNELS[1], lambda: rms.rmsnorm(x, w))
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(),
+                               atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+def test_grouped_matmul_at_llama4_shape():
+    """16 experts, top-1, capacity 160 at 2048 tokens: 5120 -> 8192."""
+    g = torch.Generator("cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    x = _randn(g, 16, 160, 5120, dtype=bf16) * 0.3
+    w = _randn(g, 16, 5120, 8192, dtype=bf16) * 0.3
+    got = _one_launch_of(gmm, gmm.KERNELS[0], lambda: gmm.grouped_matmul(x, w))
+    want = ref.grouped_matmul_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[bf16] * 5120, rtol=TOL[bf16])
+    assert _rel_l2(got, want) <= 5e-3
+
+
+def test_ssd_at_hymba_shape():
+    """50 heads of 64, state 16, chunk 128 (the tensor-core kernel)."""
+    g = torch.Generator("cuda").manual_seed(0)
+    Bz, S, H, P, G, N = 4, 512, 50, 64, 1, 16
+    x = _randn(g, Bz, S, H, P)
+    dt = _randn(g, Bz, S, H).abs() * 0.1 + 0.01
+    A = -_randn(g, H).abs() - 0.1
+    Bm, Cm = _randn(g, Bz, S, G, N) * 0.5, _randn(g, Bz, S, G, N) * 0.5
+    D = _randn(g, H)
+    y, h = _one_launch_of(ssd_scan, ssd_scan.KERNELS[0],
+                          lambda: ssd_scan.ssd(x, dt, A, Bm, Cm, D=D, chunk=128))
+    want_y, want_h = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D=D, chunk=128)
+    torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(h, want_h, atol=1e-3, rtol=1e-3)
+
+
+def _full_width_layer(arch):
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    block = T.Block(cfg, "cuda")
+    g = torch.Generator("cuda").manual_seed(0)
+    for mod in block.modules():
+        if hasattr(mod, "init_"):
+            mod.init_(g)
+    return cfg, block, g
+
+
+def test_hymba_layer_kernels_match_plain_versions():
+    """One full-width hymba block (attention ∥ SSM, the first-design
+    RMSNorm at d 1600) on 2 x 512 tokens, bf16: relative L2 <= 2e-2."""
+    from repro_torch.models import transformer as T
+
+    cfg, block, g = _full_width_layer("hymba-1.5b")
+    x = _randn(g, 2, 512, cfg.d_model, dtype=torch.bfloat16)
+    pos = torch.arange(512, device="cuda", dtype=torch.int32)[None].expand(2, 512)
+    before = rms.launches_by_kernel[rms.KERNELS[1]], ssd_scan.launches
+    with torch.no_grad():
+        got, _, _ = T.block_apply(block, cfg, x, pos, layer_idx=0)
+        with registry.kernel_mode_scope("ref"):
+            want, _, _ = T.block_apply(block, cfg, x, pos, layer_idx=0)
+    assert rms.launches_by_kernel[rms.KERNELS[1]] > before[0] and ssd_scan.launches > before[1]
+    assert torch.isfinite(got.float()).all() and _rel_l2(got, want) <= 2e-2
+
+
+def test_whisper_decoder_layer_with_cross_attention_matches_plain_versions():
+    """One full-width whisper decoder block with cross-attention to 1500
+    encoder frames (non-causal flash attention, Sq 512 != Sk 1500), bf16."""
+    from repro_torch.models import transformer as T
+
+    cfg, block, g = _full_width_layer("whisper-small")
+    x = _randn(g, 2, 512, cfg.d_model, dtype=torch.bfloat16)
+    enc = _randn(g, 2, cfg.encoder_seq, cfg.d_model, dtype=torch.bfloat16)
+    pos = torch.arange(512, device="cuda", dtype=torch.int32)[None].expand(2, 512)
+    before = fa.launches_by_kernel[fa.KERNELS[0]]
+    with torch.no_grad():
+        got, _, _ = T.block_apply(block, cfg, x, pos, layer_idx=0, enc_out=enc)
+        with registry.kernel_mode_scope("ref"):
+            want, _, _ = T.block_apply(block, cfg, x, pos, layer_idx=0, enc_out=enc)
+    assert fa.launches_by_kernel[fa.KERNELS[0]] == before + 2   # self and cross
+    assert torch.isfinite(got.float()).all() and _rel_l2(got, want) <= 2e-2
+
+
+def test_captured_whisper_decode_step_equals_uncaptured():
+    """whisper-small at full width, 2 layers a stack: a served decode step of
+    3 tenants replayed from a CUDA graph gives the uncaptured step's bits."""
+    from repro_torch.core import TDG, clear_intern_cache
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.serving import RegionServer
+    from repro_torch.training import make_serve_step
+
+    cfg = dataclasses.replace(get_config("whisper-small"), num_layers=2, encoder_layers=2)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    decode = make_serve_step(cfg)
+    with torch.no_grad():
+        states = [M.prefill(params, cfg, prompt_batch(cfg, 2, 64, 1 + i, "cuda"), 80)
+                  for i in range(3)]
+    outs = {}
+    for capture in (True, False):
+        clear_intern_cache()
+        server = RegionServer(max_batch=4, max_wait_ms=5.0, autostart=False, capture=capture)
+        for i in range(3):
+            tdg = TDG(f"decode[{i}]")
+            tdg.add_task(decode, ins=["params", "tokens", "pos", "caches"],
+                         outs=["next", "caches"], name="decode")
+            server.register_tenant(f"t{i}", tdg, outputs=("next", "caches"))
+        futs = [server.submit(f"t{i}", {
+            "params": params, "caches": c, "pos": p,
+            "tokens": torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]})
+            for i, (lg, c, p) in enumerate(states)]
+        server.start()
+        outs[capture] = [f.result(timeout=300) for f in futs]
+        graphs = server.stats()["graphs"]["captures"]
+        server.close()
+        assert (graphs > 0) == capture
+    for a, b in zip(outs[True], outs[False]):
+        for x, y in zip(torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)):
+            assert torch.equal(x, y)
+    clear_intern_cache()
 
 
 # ------------------------------------------------- CUDA-graph replay of regions

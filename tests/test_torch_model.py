@@ -181,13 +181,3 @@ def test_params_from_jax_rejects_mismatched_shapes(pair):
     tree["final_norm"]["scale"] = np.ones(cfg.d_model + 1, np.float32)
     with pytest.raises(ValueError, match="final_norm.scale"):
         M.params_from_jax(tree, cfg, "cpu")
-
-
-@pytest.mark.parametrize("family,hybrid_ssm", [("hybrid", True), ("encdec", False),
-                                               ("vlm", False), ("dense", True)])
-def test_unported_family_is_not_ported(family, hybrid_ssm):
-    """dense, moe and ssm are ported; hybrid (attention ∥ SSM), encdec and
-    vlm raise, naming ROADMAP."""
-    cfg = reduced(get_config("qwen2.5-3b"), family=family, hybrid_ssm=hybrid_ssm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Model(cfg, "cpu")

@@ -9,7 +9,6 @@ frameworks sum f32 products in different orders), and greedy tokens must be
 identical. The decode step must vmap across requests and coalesce in the
 ``RegionServer`` with no fallback.
 """
-import dataclasses
 
 import pytest
 
@@ -232,9 +231,3 @@ def test_init_params_constants():
     assert s.conv.w.abs().max() <= 2 / np.sqrt(cfg.ssm_conv) + 1e-6
     assert s.in_proj.w.shape == (cfg.d_model, ssm.ssm_dims(cfg)["in_dim"])
     assert p.head is None                          # tied embeddings
-
-
-def test_split_projection_layout_is_not_ported():
-    cfg = dataclasses.replace(reduced(get_config(ARCH)), ssm_split_proj=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Model(cfg, "cpu")

@@ -132,6 +132,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the bf16 whole-model gap printed without limit. Each model prints its
    prefill ms, decode tok/s, p50 / p99, warm round, captures, peak memory
    and seconds.
+4b. Cluster (``run_cluster``, ~200 s): full-width qwen2.5-3b with bf16
+   params (6.17 GB, pinned once per worker in its register frame), 4
+   tenants x batch 4 x prompt 512 prefilled here, then decode over RPC
+   (``ClusterFrontend``, shm transport) from worker processes: one
+   ``WorkerNode`` on a thread of this script (its counts and traces are
+   this process's) and one spawned by ``LocalSpawner``. Counts are set to
+   0 just before the prefill and read just after it, and again around the
+   cluster serving; the in-process steps (b) and (e) are held to run
+   between the two, uncounted. (b) a fixed group of 4 over the wire
+   (the in-process worker's server started once all four landed): one step
+   of occupancy 4, the same tokens as the in-process fixed group, caches
+   bitwise equal or within bf16 2e-2; (c) a free run of 8 steps a tenant
+   from 4 threads: every request completes, some coalesce; (a)
+   ``ClusterFrontend.warmup`` exports the decode step on the card (the
+   program must hold ``repro_torch::rmsnorm``) and the warm file ships it:
+   the spawned worker registering 4 tenants from it hydrates (>= 1), never
+   lowers (0 intern misses), counts no failure or reject and serves a
+   single step with the program; (e) a ``REPRO_FAULT_PLAN`` armed for the
+   spawned worker alone kills it at its 3rd ``submit_batch``: 1 death,
+   requeues, the tenants re-ship TDG, pinned params and program to the
+   sibling (which hydrates, no intern miss), every step is served, the slot
+   is respawned; then each tenant serves tenant0's state alone where it is
+   routed now, with the same tokens as the in-process step and caches
+   within bf16 2e-2 (the failover run's own values are held to nothing:
+   its batches form as requests come); (d) cold start, register -> first served step of one
+   tenant on a fresh in-process worker, hydrated against re-lowered under
+   ``REPRO_SHIP_ARTIFACTS=0`` (intern misses >= 1), printed without limit;
+   the hydrated worker's second step, profiled, must replay
+   ``rmsnorm_sm90_kernel`` inside the program's graph; (f) no worker process
+   is left and at most 8 GiB stay reserved. A ``{"cluster": {...}}`` line
+   holds the numbers.
 5. Taskgraph: the paper's record -> fuse -> lower -> replay path on the
    paper's workloads (``repro_torch.workloads``), each at a coarse and a
    fine grain, at sizes where the card does real work: Cholesky n 16,384
@@ -166,7 +197,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
       2e-2; step ms (median of the last 2), tokens/s and peak memory;
       one more step under the profiler gives the card's idle share and the
       kernels that take its time;
-   b. the same for mamba2-370m, 48 layers (the SSD forward kernel and rule);
+   b. the same for mamba2-370m at 24 of 48 layers (the SSD forward kernel
+      and rule; the launcher, d, trains it at full depth);
    c. the per-layer train region (``make_tdg_train_region``) of qwen2.5-3b
       at full width and 8 of 36 layers: record, ``EagerExecutor``,
       uncaptured and captured replay (median of 5 each); captured equal to
@@ -196,7 +228,8 @@ counts do not see).
 The last lines are one ``{"kernels": [...]}`` JSON object (with each op's
 backward rule: ``backward_ms``, ``backward_bound_ms``, ...), one
 ``{"taskgraph": [...]}`` object, one ``{"training": {...}}`` object, one
-``{"families": {...}}`` object and then ``{"ok": true, "device": {...}}``.
+``{"families": {...}}`` object, one ``{"cluster": {...}}`` object and then
+``{"ok": true, "device": {...}}``.
 Needs a CUDA card and the repository beside this file.
 """
 from __future__ import annotations
@@ -1794,6 +1827,9 @@ def run_taskgraph(kernels: dict, card: str, runs=TASKGRAPH_RUNS) -> list:
 # ---------------------------------------------------------------- training
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
+# the depth of mamba2-370m's fused steps, cut from 48 to keep the script's
+# time as the cluster phase grew it
+TRAIN_MAMBA_LAYERS = 24
 TDG_LAYERS = 8            # of qwen2.5-3b's 36: the region holds ~8 copies of its params
 TDG_VOCAB = 152064        # qwen2.5-3b's padded vocabulary: a multiple of 256
 TDG_LR = 1e-4             # AdamW's first step moves each weight by about +-lr
@@ -1973,13 +2009,16 @@ def fused_steps(cfg, optimizer, steps: int, mode: str, registry, profile: bool =
             "idle": idle}
 
 
-def train_fused_model(arch: str, registry, card: str) -> dict:
-    """One model at full width and depth: TRAIN_STEPS steps with the kernels,
-    then one on the plain versions from the same weights; their first
-    steps' loss and grad norm must agree within FUSED_REL."""
+def train_fused_model(arch: str, registry, card: str, layers: int = 0) -> dict:
+    """One model at full width, at its depth or cut to ``layers``: TRAIN_STEPS
+    steps with the kernels, then one on the plain versions from the same
+    weights; their first steps' loss and grad norm must agree within
+    FUSED_REL."""
     from repro_torch.launch import train as LT
 
     cfg, optimizer = LT.build(arch, False, TRAIN_SEQ, TRAIN_BATCH, 100, 3e-3, "auto")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     kern = fused_steps(cfg, optimizer, TRAIN_STEPS, "auto", registry, profile=True)
     plain = fused_steps(cfg, optimizer, 1, "ref", registry)
     gaps = {k: abs(kern[k][0] - plain[k][0]) / abs(plain[k][0]) for k in ("loss", "grad_norm")}
@@ -2188,10 +2227,11 @@ def train_launcher() -> dict:
 
 def run_training(kernels: dict, registry, card: str) -> dict:
     """The training path: fused steps of qwen2.5-3b (36 layers) and
-    mamba2-370m (48), the per-layer train region, and the launcher."""
+    mamba2-370m (cut to TRAIN_MAMBA_LAYERS of 48: the launcher trains it at
+    its full depth), the per-layer train region, and the launcher."""
     t0 = time.perf_counter()
     out = {"dense": train_fused_model("qwen2.5-3b", registry, card),
-           "mamba2": train_fused_model("mamba2-370m", registry, card),
+           "mamba2": train_fused_model("mamba2-370m", registry, card, TRAIN_MAMBA_LAYERS),
            "region": train_region(kernels, registry, card),
            "launcher": train_launcher()}
     _free()
@@ -2200,6 +2240,466 @@ def run_training(kernels: dict, registry, card: str) -> dict:
     if torch.cuda.memory_reserved() > RESERVED_LIMIT:
         raise AssertionError("the training phase left more than 8 GiB reserved")
     return out
+
+
+# ---------------------------------------------------------------- cluster
+
+CLUSTER_SPEC = "repro_torch.launch.serve:build_decode_registry"
+# full-width qwen2.5-3b with bf16 params: 6.17 GB, under the wire's 8 GiB
+# frame cap, pinned once per worker in its register frame
+CLUSTER_KW = {"arch": "qwen2.5-3b", "smoke": False, "device": "cuda",
+              "param_dtype": "bfloat16"}
+# the spawned worker of the failover run dies at its 3rd submit_batch frame
+CLUSTER_KILL_AFTER = 2
+CLUSTER_HEARTBEAT = {"heartbeat_secs": 10.0, "lease_misses": 6}
+
+
+def _cluster_request(st) -> dict:
+    return {"tokens": st["tok"][:, None], "pos": st["pos"], "caches": st["caches"]}
+
+
+def _cluster_tdg(decode, i: int):
+    from repro_torch.core import TDG
+
+    tdg = TDG(f"decode[{i}]")
+    tdg.add_task(decode, ins=["params", "tokens", "pos", "caches"],
+                 outs=["next", "caches"], name="decode")
+    return tdg
+
+
+def _in_process_worker(**server_kwargs):
+    """A ``WorkerNode`` serving on a thread of this process, so its kernel
+    counts and a profiler trace of its steps are this process's. It links its
+    own registry, as a worker process would: its payloads, and so its intern
+    cache entries, are its own."""
+    from repro_torch.serving import RegionServer, WorkerNode, resolve_registry
+
+    registry = resolve_registry(CLUSTER_SPEC, CLUSTER_KW)
+    server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, device="cuda",
+                          name="chip-smoke-worker", **server_kwargs)
+    node = WorkerNode(registry, device="cuda", transport="shm", server=server)
+    thread = threading.Thread(target=node.serve_forever, name="chip-smoke-worker",
+                              daemon=True)
+    thread.start()
+    return node, thread
+
+
+def _stop_worker(node, thread) -> None:
+    """Wait for an in-process worker its frontend shut down, and drop the
+    params and programs it held."""
+    thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("an in-process worker did not shut down")
+    node._pin_groups.clear()
+    node.server.pool.clear()
+
+
+def _free_run(frontend, states, steps: int) -> dict:
+    """``steps`` greedy decode steps of every tenant, one thread a tenant,
+    through ``frontend.serve``: the tokens, per-request latencies and wall time."""
+    toks = [[st["tok"].cpu()] for st in states]
+    lat, errors = [], []
+
+    def loop(i):
+        try:
+            st = dict(states[i])
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                out = frontend.serve(f"tenant{i}", _cluster_request(st), timeout=600)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                st = {"tok": out["next"], "pos": st["pos"] + 1, "caches": out["caches"]}
+                toks[i].append(out["next"])
+        except BaseException as e:   # surface thread failures, don't exit 0
+            errors.append(e)
+
+    threads = [threading.Thread(target=loop, args=(i,)) for i in range(len(states))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return {"tokens": [torch.stack(t, 1) for t in toks], "lat_ms": sorted(lat),
+            "wall_s": wall}
+
+
+def _pct(xs: list, q: float) -> float:
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _caches_gap(a: dict, b: dict) -> tuple[bool, float]:
+    bitwise, gap = torch.equal(a["next"].cpu(), b["next"].cpu()), 0.0
+    if not bitwise:
+        raise AssertionError("the fixed group over the wire generated other tokens")
+    for x, y in zip(torch.utils._pytree.tree_leaves(a["caches"]),
+                    torch.utils._pytree.tree_leaves(b["caches"])):
+        x, y = x.cpu(), y.cpu()
+        bitwise &= torch.equal(x, y)
+        gap = max(gap, (x.float() - y.float()).abs().max().item())
+    return bitwise, gap
+
+
+def _cold_start(label: str, registry, pinned, warm_path: str, state, ship: bool) -> dict:
+    """Register -> first served step of one tenant on a fresh in-process
+    worker from the warm file: hydrating the shipped program, or (under
+    ``REPRO_SHIP_ARTIFACTS=0``) lowering the TDG."""
+    import os
+
+    from repro_torch.core import lower
+    from repro_torch.serving import ClusterFrontend
+
+    node, thread = _in_process_worker()
+    os.environ["REPRO_SHIP_ARTIFACTS"] = "1" if ship else "0"
+    try:
+        frontend = ClusterFrontend(workers=[f"127.0.0.1:{node.port}"], registry=registry,
+                                   device="cuda", transport="shm", heartbeat_secs=0,
+                                   name=f"chip-smoke-{label}")
+    finally:
+        del os.environ["REPRO_SHIP_ARTIFACTS"]
+    profiled = None
+    try:
+        misses = lower.intern_stats()["misses"]
+        t0 = time.perf_counter()
+        frontend.register_tenant("tenant0", warm_path=warm_path, outputs=("next", "caches"),
+                                 pinned=pinned)
+        t1 = time.perf_counter()
+        frontend.serve("tenant0", _cluster_request(state), timeout=600)
+        t2 = time.perf_counter()
+        misses = lower.intern_stats()["misses"] - misses
+        if ship:    # one warm step of the in-process worker: the hydrated program's graph
+            profiled = device_profile("cluster single step (hydrated program, graph replay)",
+                                      lambda: frontend.serve("tenant0", _cluster_request(state),
+                                                             timeout=600), tries=3)
+        stats = frontend.stats()
+    finally:
+        frontend.close()
+        _stop_worker(node, thread)
+    agg = stats["aggregate"]
+    out = {"register_ms": (t1 - t0) * 1e3, "first_step_ms": (t2 - t1) * 1e3,
+           "total_ms": (t2 - t0) * 1e3, "hydrated": agg["hydrated_inband"],
+           "intern_misses": misses, "aot_served": agg["aot_served"]}
+    log(f"cluster cold start ({label}): register {out['register_ms']:.0f} ms + first "
+        f"step {out['first_step_ms']:.0f} ms = {out['total_ms']:.0f} ms; hydrated "
+        f"{out['hydrated']}, intern misses {misses}, served by the program {out['aot_served']}")
+    if ship:
+        names = [n for n in profiled["kernels"] if "rmsnorm_sm90_kernel" in n]
+        out["replay_launches"] = {"rmsnorm_sm90_kernel": sum(profiled["kernels"][n][0]
+                                                             for n in names)}
+        out["card_idle"] = profiled["idle"]
+        if not (out["hydrated"] == 1 and misses == 0 and out["aot_served"] == 2 and names):
+            raise AssertionError(f"cluster cold start ({label}): the shipped program was not "
+                                 f"hydrated, served and replayed with rmsnorm_sm90_kernel "
+                                 f"({out})")
+    if not ship and not (out["hydrated"] == 0 and misses >= 1):
+        raise AssertionError(f"cluster cold start ({label}): with shipping off the worker "
+                             f"did not re-lower ({out})")
+    return out
+
+
+def run_cluster(kernels: dict, card: str) -> dict:
+    """The cluster tier on the card: full-width qwen2.5-3b (bf16 params) served
+    to 4 tenants x batch 4 x prompt 512 (prefilled here) from worker
+    processes over RPC. (a) warmup exports the decode step on the card and
+    the program ships; the worker it ships to hydrates it (hydrations >= 1,
+    no intern miss, no failure, no reject), and a profiled single step on an
+    in-process worker replays the program's graph with rmsnorm_sm90; (b) a
+    fixed group of 4 over the wire equals the in-process fixed group; (c) a
+    free run of 8 steps completes and coalesces; (d) cold start, hydrated
+    against re-lowered; (e) a fault plan kills the spawned worker mid-run:
+    its tenants re-route, re-ship and finish, the slot is respawned, and each
+    tenant then serves tenant0's state alone, held to the in-process step;
+    (f) nothing is left running and at most 8 GiB stay reserved beyond the
+    params. The profiled single step is (d)'s hydrated worker's second step.
+    The launch counts are the prefill's and the cluster serving's; the
+    in-process steps (b) and (e) are held to run between the two, uncounted."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core import lower
+    from repro_torch.launch.serve import build_config, prompt_batch
+    from repro_torch.models import model as M
+    from repro_torch.serving import RegionServer, resolve_registry
+
+    t_phase = time.perf_counter()
+    cfg = build_config("qwen2.5-3b", smoke=False, param_dtype="bfloat16")
+    registry = resolve_registry(CLUSTER_SPEC, CLUSTER_KW)
+    decode = registry.get("decode")
+    with torch.no_grad():
+        model = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    pinned = {"params": M.params_of(model)}
+    max_len = PROMPT + DECODE_STEPS
+    log(f"cluster: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{param_bytes / 1e9:.2f} GB of bf16 params")
+
+    # ---- main path, first part: the frontend's prefill (counts zeroed just
+    # before, read just after)
+    for mod in kernels.values():
+        mod.reset_launches()
+    states = []
+    with torch.no_grad():
+        for i in range(TENANTS):
+            logits, caches, pos = M.prefill(model, cfg, prompt_batch(cfg, BATCH, PROMPT, 1 + i,
+                                                                     "cuda"), max_len)
+            states.append({"tok": torch.argmax(logits[:, -1], -1).to(torch.int32),
+                           "pos": pos, "caches": caches})
+    in_prefill = read_counts(kernels)
+    del logits, caches, pos
+
+    # not the main path: the in-process fixed group (b) is held to, and the
+    # single step of tenant0's state the values served after the failover (e)
+    # are held to; the same payload, the model
+    server = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, autostart=False,
+                          device="cuda", name="chip-smoke-cluster-fixed")
+    for i in range(TENANTS):
+        server.register_tenant(f"tenant{i}", _cluster_tdg(decode, i), outputs=("next", "caches"))
+    futs = [server.submit(f"tenant{i}", {"params": model, **_cluster_request(st)})
+            for i, st in enumerate(states)]
+    server.start()
+    fixed_in_process = [f.result(timeout=600) for f in futs]
+    single_in_process = server.submit("tenant0", {"params": model,
+                                                  **_cluster_request(states[0])}).result(timeout=600)
+    server.close()
+    del server, futs
+
+    out: dict = {"card": card}
+    warm_dir = tempfile.mkdtemp(prefix="chip-smoke-warm-")
+    try:
+        # ---- main path, second part: the cluster serving (counts zeroed
+        # just before, read just after, and added to the prefill's)
+        for mod in kernels.values():
+            mod.reset_launches()
+        _cluster_served(out, cfg, registry, decode, pinned, states, fixed_in_process,
+                        single_in_process, os.path.join(warm_dir, "decode.tdg.json"))
+        launches = read_counts(kernels)
+        out["launches"] = {k: in_prefill[k] + launches[k] for k in launches}
+        # ---- end of the main path
+    finally:
+        shutil.rmtree(warm_dir, ignore_errors=True)
+
+    # (f) cleanup
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"cluster: worker processes left running: {left}")
+    del states, fixed_in_process, single_in_process, pinned, model
+    lower.clear_intern_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    log(f"cluster phase: {time.perf_counter() - t_phase:.1f} s; {reserved / 2**30:.2f} GiB "
+        f"reserved after it (the params, {param_bytes / 2**30:.2f} GiB, freed)")
+    if reserved > RESERVED_LIMIT:
+        raise AssertionError("the cluster phase left more than 8 GiB reserved")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _cluster_served(out: dict, cfg, registry, decode, pinned, states, fixed_in_process,
+                    single_in_process, warm_path: str) -> None:
+    """The cluster's main path, (a)-(e) of :func:`run_cluster`, its results
+    written into ``out``."""
+    import os
+
+    from repro_torch.core import lower
+    from repro_torch.serving import ClusterFrontend, faults
+
+    # ---- F1: the in-process worker A (its server started after the fixed group lands)
+    node_a, thread_a = _in_process_worker(autostart=False)
+    t0 = time.perf_counter()
+    f1 = ClusterFrontend(workers=[f"127.0.0.1:{node_a.port}"], registry=registry,
+                         device="cuda", transport="shm", max_batch=TENANTS, max_wait_ms=5.0,
+                         heartbeat_secs=0, name="chip-smoke-cluster")
+    try:
+        attach_ms = (time.perf_counter() - t0) * 1e3
+        reg_ms = []
+        for i in range(TENANTS):
+            t0 = time.perf_counter()
+            f1.register_tenant(f"tenant{i}", _cluster_tdg(decode, i), outputs=("next", "caches"),
+                               pinned=pinned)
+            reg_ms.append((time.perf_counter() - t0) * 1e3)
+        shipped = f1.stats()["frontend"]["wire"]["bytes_sent"]
+        if f1.stats()["wire"][0]["transport"] != "shm":
+            raise AssertionError("cluster: the in-process worker did not take the shm ring")
+
+        # (b) a fixed group of 4 over the wire: all four land before A's server starts
+        futs = [f1.submit(f"tenant{i}", _cluster_request(st)) for i, st in enumerate(states)]
+        deadline = time.monotonic() + 120
+        while node_a.server.metrics.snapshot()["admitted"] < TENANTS:
+            if time.monotonic() > deadline:
+                raise AssertionError("cluster: the fixed group never reached the worker")
+            time.sleep(0.01)
+        node_a.server.start()
+        fixed_wire = [f.result(timeout=600) for f in futs]
+        occupancy = [r["occupancy"] for r in f1.trace()[0]["records"]]
+        bitwise, gap = True, 0.0
+        for a, b in zip(fixed_wire, fixed_in_process):
+            eq, g = _caches_gap(a, b)
+            bitwise &= eq
+            gap = max(gap, g)
+        log(f"cluster (b) fixed group of {TENANTS} over the wire: steps of {occupancy}; "
+            f"tokens equal the in-process fixed group's; caches "
+            f"{'bitwise equal' if bitwise else f'max abs gap {gap:.3g} (limit bf16 2e-2)'}")
+        if occupancy != [TENANTS] or gap > TOL[torch.bfloat16]:
+            raise AssertionError(f"cluster fixed group: steps {occupancy}, cache gap {gap:.3g}")
+
+        # (c) the free run: 8 steps of every tenant from 4 threads
+        wire0 = f1.stats()["frontend"]["wire"]
+        run = _free_run(f1, states, DECODE_STEPS)
+        st1 = f1.stats()
+        wire1, agg1 = st1["frontend"]["wire"], st1["aggregate"]
+        steps = TENANTS * DECODE_STEPS
+        free = {"decode_tok_s": steps * BATCH / run["wall_s"], "wall_s": run["wall_s"],
+                "p50_ms": _pct(run["lat_ms"], 0.5), "p99_ms": _pct(run["lat_ms"], 0.99),
+                "wire_bytes_per_step": (wire1["bytes_sent"] + wire1["bytes_received"]
+                                        - wire0["bytes_sent"] - wire0["bytes_received"]) / steps,
+                "shm_bytes_per_step": (wire1["shm_bytes_sent"] + wire1["shm_bytes_received"]
+                                       - wire0["shm_bytes_sent"]
+                                       - wire0["shm_bytes_received"]) / steps,
+                "encode_ms_per_step": (wire1["encode_seconds"] - wire0["encode_seconds"])
+                * 1e3 / steps,
+                "decode_ms_per_step": (wire1["decode_seconds"] - wire0["decode_seconds"])
+                * 1e3 / steps,
+                "coalesced_requests": agg1["coalesced_requests"],
+                "batches": agg1["batches"]}
+        log(f"cluster (c) free run: {steps} steps in {run['wall_s'] * 1e3:.1f} ms "
+            f"({free['decode_tok_s']:.1f} tok/s over RPC), step p50 {free['p50_ms']:.1f} ms "
+            f"p99 {free['p99_ms']:.1f} ms; wire {free['wire_bytes_per_step'] / 1e6:.1f} MB a "
+            f"step ({free['shm_bytes_per_step'] / 1e6:.1f} MB through shm), encode "
+            f"{free['encode_ms_per_step']:.2f} ms + decode {free['decode_ms_per_step']:.2f} ms "
+            f"a step (frontend side); {agg1['batches']} batches, coalesced "
+            f"{agg1['coalesced_requests']}")
+        if agg1["completed"] != steps + TENANTS or agg1["failed"] or not agg1["coalesced_requests"]:
+            raise AssertionError(f"cluster free run: {agg1}")
+        for t in run["tokens"]:
+            if t.shape != (BATCH, DECODE_STEPS + 1) or not ((t >= 0) & (t < cfg.vocab_size)).all():
+                raise AssertionError(f"cluster free run: bad tokens {t.shape}")
+
+        # (a) export the decode step on the card, on worker A, and hold it
+        t0 = time.perf_counter()
+        report = f1.warmup("tenant0", _cluster_request(states[0]))
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        record = f1.tenant("tenant0")
+        program = node_a.server.pool.peek(node_a.server.tenant("tenant0").aot_key).fn.program
+        code = program.graph_module.code
+        if "torch.ops.repro_torch.rmsnorm" not in code or record.artifact is None:
+            raise AssertionError("cluster: the exported decode step holds no repro_torch::rmsnorm")
+        with open(warm_path, "w") as f:
+            json.dump(record.tdg_dict, f)
+        with open(warm_path + ".aot", "wb") as f:
+            f.write(record.artifact)
+        log(f"cluster (a) warmup on the card: {warm_ms:.0f} ms (export "
+            f"{report['trace_seconds'] * 1e3:.0f} ms, module "
+            f"{report['compile_seconds'] * 1e3:.0f} ms); {len(program.graph.nodes)} nodes, "
+            f"{code.count('torch.ops.repro_torch.rmsnorm')} repro_torch::rmsnorm calls; "
+            f"artifact {len(record.artifact) / 1e6:.2f} MB; cost analysis {report['cost_analysis']}")
+        out.update(attach_ms=attach_ms, register_ms=reg_ms, register_bytes=shipped,
+                   fixed_group={"occupancy": occupancy, "bitwise": bitwise, "max_abs_gap": gap},
+                   free_run=free, warmup_ms=warm_ms, export_ms=report["trace_seconds"] * 1e3,
+                   artifact_bytes=len(record.artifact), cost_analysis=report["cost_analysis"])
+    finally:
+        f1.close()
+        _stop_worker(node_a, thread_a)
+    del node_a, thread_a, f1
+
+    # ---- F2: a spawned worker (armed to die at its 3rd submit_batch) + in-process A2
+    node_b, thread_b = _in_process_worker()
+    os.environ[faults.FAULT_PLAN_ENV] = faults.FaultPlan([{
+        "role": "worker", "point": "recv", "op": "submit_batch",
+        "after": CLUSTER_KILL_AFTER, "action": "kill"}], seed=0).to_json()
+    try:
+        t0 = time.perf_counter()
+        f2 = ClusterFrontend(workers=["local", f"127.0.0.1:{node_b.port}"], registry=CLUSTER_SPEC,
+                             registry_kwargs=CLUSTER_KW, device="cuda", transport="shm",
+                             max_batch=TENANTS, max_wait_ms=5.0, name="chip-smoke-failover",
+                             **CLUSTER_HEARTBEAT)
+        spawn_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        # the plan was for the spawned worker alone: not this process, not a respawn
+        del os.environ[faults.FAULT_PLAN_ENV]
+        faults.clear()
+    try:
+        reg_ms2 = []
+        for i in range(TENANTS):
+            t0 = time.perf_counter()
+            f2.register_tenant(f"tenant{i}", warm_path=warm_path, outputs=("next", "caches"),
+                               pinned=pinned)
+            reg_ms2.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        f2.serve("tenant0", _cluster_request(states[0]), timeout=600)    # its 1st frame
+        first_ms = (time.perf_counter() - t0) * 1e3
+        spawned = f2.stats()["workers"][0]
+        hyd = {"hydrations": spawned["pool"]["hydrations"],
+               "intern_misses": spawned["intern"]["misses"],
+               "aot_hydrate_failures": spawned["metrics"]["aot_hydrate_failures"],
+               "aot_topology_rejects": spawned["metrics"]["aot_topology_rejects"],
+               "aot_served": spawned["metrics"]["aot_served"]}
+        log(f"cluster (a) the spawned worker (pid {spawned['worker']['pid']}, "
+            f"{spawned['worker']['transport']}): spawned in {spawn_ms:.0f} ms, 4 tenants "
+            f"registered from the warm file in {[round(x) for x in reg_ms2]} ms, first step "
+            f"{first_ms:.0f} ms; {hyd}")
+        if not (hyd["hydrations"] >= 1 and hyd["intern_misses"] == 0 and hyd["aot_served"] >= 1
+                and hyd["aot_hydrate_failures"] == 0 and hyd["aot_topology_rejects"] == 0):
+            raise AssertionError(f"cluster: the spawned worker did not serve the hydrated "
+                                 f"program alone ({hyd})")
+
+        # (e) the failover run: the spawned worker dies at its 3rd submit_batch
+        misses = lower.intern_stats()["misses"]
+        run2 = _free_run(f2, states, DECODE_STEPS)
+        misses = lower.intern_stats()["misses"] - misses
+        deadline = time.monotonic() + 180
+        while f2.respawns < 1 and time.monotonic() < deadline:
+            time.sleep(0.2)
+        st2 = f2.stats()
+        fr2 = st2["frontend"]
+        a2 = st2["workers"][1]
+        fail = {"worker_deaths": fr2["worker_deaths"], "requeues": fr2["requeues"],
+                "retries": fr2["retries"], "respawns": fr2["respawns"],
+                "pin_groups_shipped": fr2["pin_groups_shipped"],
+                "artifacts_shipped": fr2["artifacts_shipped"],
+                "artifact_bytes_shipped": fr2["artifact_bytes_shipped"],
+                "sibling_hydrations": a2["pool"]["hydrations"],
+                "sibling_intern_misses": misses,
+                "failover_ms": run2["lat_ms"][-1], "wall_s": run2["wall_s"]}
+        log(f"cluster (e) failover: {fail}; tenants on {[r['worker'] for r in st2['tenants'].values()]}")
+        if not (fail["worker_deaths"] == 1 and fail["requeues"] >= 1 and fail["respawns"] >= 1
+                and fail["pin_groups_shipped"] >= 2 and fail["artifacts_shipped"] >= 2 * TENANTS
+                and fail["sibling_hydrations"] >= 1 and misses == 0):
+            raise AssertionError(f"cluster failover: {fail}")
+        for t in run2["tokens"]:
+            if t.shape != (BATCH, DECODE_STEPS + 1) or not ((t >= 0) & (t < cfg.vocab_size)).all():
+                raise AssertionError(f"cluster failover: not every step was served {t.shape}")
+        # the failover run's batches form as requests come, so its values are
+        # held to nothing; each tenant, re-shipped to where it is routed now,
+        # then serves tenant0's state alone, held to the in-process step
+        after = {}
+        for i in range(TENANTS):
+            got = f2.serve(f"tenant{i}", _cluster_request(states[0]), timeout=600)
+            eq, g = _caches_gap(got, single_in_process)
+            after[f"tenant{i}"] = {"worker": f2.tenant(f"tenant{i}").worker, "bitwise": eq,
+                                   "max_abs_gap": g}
+        log(f"cluster (e) after the failover each tenant serves tenant0's state alone: tokens "
+            f"equal the in-process step's; {after}")
+        if any(a["max_abs_gap"] > TOL[torch.bfloat16] for a in after.values()):
+            raise AssertionError(f"cluster failover: served values differ from the "
+                                 f"in-process step's ({after})")
+        fail["after"] = after
+
+        out.update(spawn_ms=spawn_ms, register_ms_spawned=reg_ms2,
+                   first_step_ms_spawned=first_ms, spawned_worker=hyd, failover=fail)
+    finally:
+        f2.close()
+        _stop_worker(node_b, thread_b)
+    del node_b, thread_b, f2
+
+    # (d) cold start: register -> first served step, hydrated against re-lowered
+    out["cold_start"] = {"hydrated": _cold_start("hydrated", registry, pinned, warm_path,
+                                                 states[0], ship=True),
+                         "relowered": _cold_start("relowered", registry, pinned, warm_path,
+                                                  states[0], ship=False)}
 
 
 def main() -> int:
@@ -2274,6 +2774,11 @@ def main() -> int:
                       for k in fam["launches"]["prefill"]}
         replayed[arch] = fam["replayed"]
 
+    # ---- the cluster path: counts zeroed just before, read just after (run_cluster)
+    cluster = run_cluster(kernels, card)
+    runs["cluster"] = cluster.pop("launches")
+    log(f"path cluster: launches {runs['cluster']}")
+
     # ---- the taskgraph path: counts zeroed just before, read just after
     for mod in kernels.values():
         mod.reset_launches()
@@ -2310,6 +2815,7 @@ def main() -> int:
     log(json.dumps({"taskgraph": taskgraph, "card": card}))
     log(json.dumps({"training": training, "card": card}))
     log(json.dumps({"families": families, "card": card}))
+    log(json.dumps({"cluster": cluster}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -165,12 +165,24 @@ class ReplayExecutor:
             self._cache[sig] = fn
         return fn
 
-    def aot_compile(self, buffers: Mapping[str, Any]):
-        """Ahead-of-time compilation, to persist a replay for other
-        processes, waits for serialization (ROADMAP queue item 11)."""
-        raise NotImplementedError(
-            "ReplayExecutor.aot_compile waits for serialization (ROADMAP.md, "
-            "queue item 11: an exported program in place of the .aot sidecar)")
+    def aot_compile(self, buffers: Mapping[str, Any]) -> "_lower.AotExecutable":
+        """Export the replay program for these buffers' specs, now.
+
+        The program is installed in the per-signature cache under this
+        executor's pinned substrate, so later ``run`` calls with matching
+        buffers replay it with no lowering or tracing; the returned
+        ``AotExecutable`` carries the cost analysis and is serializable with
+        ``serialize.save_executable``. Requires ``order=None`` (the exported
+        program is wave-ordered).
+        """
+        if self.order is not None:
+            raise ValueError("aot_compile does not support a custom order")
+        with _kreg.kernel_mode_scope(self.kernel_mode):
+            aot = _lower.aot_compile_tdg(self.tdg, buffers,
+                                         donate_slots=self.donate_slots,
+                                         fuse=self.fuse, batcher=self.batcher)
+        self._cache[(buffers_signature(buffers), self.kernel_mode, self.plan_key)] = aot
+        return aot
 
     def run(self, buffers: Mapping[str, Any], block: bool = True) -> dict:
         fn = self._compiled_for(buffers)

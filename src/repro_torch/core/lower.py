@@ -22,6 +22,11 @@ per-task orchestration. Three layers, as in the reference:
   Donated slots are the graph's own buffers: nothing is copied in or out
   for them (the reference's ``_jit_with_donation``). CPU buffers have no
   graph: the callable runs as it is. See :class:`GraphReplay`.
+
+The AOT path (:func:`aot_compile_tdg`) exports the lowered replay function
+with ``torch.export`` for fixed buffer specs: an :class:`AotExecutable`
+that ``serialize`` persists and ships to other processes, where it is
+replayed through a :class:`GraphReplay` of its own.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils import _pytree as pytree
 
 from ..kernels import registry as _kreg
@@ -523,3 +529,191 @@ def lower_tdg(tdg: TDG, order: Sequence[int] | None = None,
     fn = (_base_function(tdg, outputs, do_fuse, min_class_size, batcher)
           if order is None else tdg_as_function(tdg, order=order, outputs=outputs))
     return GraphReplay(fn, tdg.region, donate_slots) if jit else fn
+
+
+# ------------------------------------------------------------------ AOT path
+
+def module_tensors(mod: nn.Module) -> dict[str, torch.Tensor]:
+    """A module's parameters and buffers as {dotted name: tensor}, detached
+    (sharing storage): what an exported program takes in a module's place."""
+    out = {name: p.detach() for name, p in mod.named_parameters()}
+    out.update((name, b.detach()) for name, b in mod.named_buffers())
+    return out
+
+
+def tensor_tree(buffers: Mapping[str, Any]) -> dict:
+    """``buffers`` with every module leaf replaced by :func:`module_tensors`:
+    an exported program's inputs are trees of tensors."""
+    return {k: pytree.tree_map(lambda v: module_tensors(v) if isinstance(v, nn.Module) else v,
+                               v, is_leaf=lambda v: isinstance(v, nn.Module))
+            for k, v in buffers.items()}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def spec_of(buffers: Mapping[str, Any]) -> dict:
+    """Per slot, the tree of ``(shape, dtype name)`` of its tensors (modules
+    as :func:`tensor_tree` flattens them): the input specs of an
+    :class:`AotExecutable`."""
+    def leaf(t):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"an exported program takes tensor buffers, got "
+                            f"{type(t).__name__}")
+        return (tuple(t.shape), _dtype_name(t.dtype))
+    return {k: pytree.tree_map(leaf, v) for k, v in tensor_tree(buffers).items()}
+
+
+def spec_signature(specs: Mapping[str, Any]) -> tuple:
+    """Comparable signature of :func:`spec_of` specs (slot order ignored)."""
+    rows = []
+    for k in sorted(specs):
+        leaves, spec = pytree.tree_flatten(
+            specs[k], is_leaf=lambda x: isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[1], str))
+        rows.append((k, str(spec), tuple((tuple(s), d) for s, d in leaves)))
+    return tuple(rows)
+
+
+class _Program(nn.Module):
+    """The lowered replay function as the module ``torch.export`` takes."""
+
+    def __init__(self, fn: Callable[[dict], dict]):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, buffers: dict) -> dict:
+        return self.fn(buffers)
+
+
+@dataclasses.dataclass
+class AotExecutable:
+    """A replay program exported ahead of time for fixed buffer specs.
+
+    ``program`` is the ``torch.export.ExportedProgram`` of the lowered replay
+    function over :func:`tensor_tree` of the buffers; ``input_specs`` its
+    per-slot ``(shape, dtype)`` trees; ``device`` where it runs. Calling the
+    object runs the program on a buffer dict (extra keys are dropped; module
+    leaves are read as their tensors) through a :class:`GraphReplay`: on the
+    card its first call captures a CUDA graph, later calls replay it, and
+    ``donate_slots`` are honoured as in ``lower_tdg``. ``cost_analysis``
+    holds ``flops`` (``FlopCounterMode``) and ``bytes accessed`` (inputs and
+    outputs); ``trace_seconds`` is the export, ``compile_seconds`` building
+    the program's module.
+    """
+
+    program: Any
+    input_specs: dict
+    fused: bool
+    donate_slots: tuple[str, ...] = ()
+    cost_analysis: dict | None = None
+    trace_seconds: float = 0.0
+    compile_seconds: float = 0.0
+    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
+
+    def __post_init__(self) -> None:
+        self.signature = spec_signature(self.input_specs)
+        module = self.program.module()
+
+        def run(buffers: dict) -> dict:
+            return module(tensor_tree(buffers))
+
+        run.__name__ = "aot_program"
+        self.replay = GraphReplay(run, "aot_program", self.donate_slots)
+
+    @property
+    def flops(self) -> float | None:
+        return (self.cost_analysis or {}).get("flops")
+
+    @property
+    def bytes_accessed(self) -> float | None:
+        return (self.cost_analysis or {}).get("bytes accessed")
+
+    def matches(self, buffers: Mapping[str, Any]) -> bool:
+        """Do ``buffers`` (extra keys ignored) have this program's specs, on
+        its device?"""
+        args = {k: buffers[k] for k in self.input_specs if k in buffers}
+        if len(args) != len(self.input_specs):
+            return False
+        leaves = pytree.tree_leaves(tensor_tree(args))
+        if any(isinstance(l, torch.Tensor) and l.device.type != self.device.type
+               for l in leaves):
+            return False
+        try:
+            return spec_signature(spec_of(args)) == self.signature
+        except TypeError:
+            return False
+
+    def __call__(self, buffers: Mapping[str, Any]) -> dict:
+        return self.replay({k: buffers[k] for k in self.input_specs})
+
+    def release(self) -> None:
+        """Drop the CUDA graphs its calls captured."""
+        self.replay.release()
+
+
+def _cost_analysis(fn: Callable[[dict], dict], fakes: dict, mode) -> dict | None:
+    """``flops`` (``FlopCounterMode``) and ``bytes accessed`` (inputs and
+    outputs) of one call of ``fn`` on fake tensors of ``mode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    try:
+        with torch.no_grad(), mode, FlopCounterMode(display=False) as counter:
+            out = fn(fakes)
+    except Exception:   # a payload that cannot run on fake tensors
+        return None
+    nbytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves((fakes, out))
+                 if isinstance(t, torch.Tensor))
+    return {"flops": float(counter.get_total_flops()), "bytes accessed": float(nbytes)}
+
+
+def aot_compile_tdg(tdg: TDG, buffers: Mapping[str, Any],
+                    outputs: Sequence[str] | None = None,
+                    donate_slots: Sequence[str] = (),
+                    fuse: bool | str = "auto",
+                    min_class_size: int = 2,
+                    batcher: str = "auto") -> AotExecutable:
+    """Export the replay program for ``buffers``' specs, here and now.
+
+    ``buffers`` hold real tensors on the device the program is for (module
+    leaves are exported as their tensors); no kernel launches, since export
+    traces on fake tensors: on CUDA tensors the program holds the kernels'
+    custom ops (``torch.ops.repro_torch.*``), on CPU tensors their plain
+    versions, as the wrappers choose by device. Runs under the caller's
+    kernel mode, which the program bakes in. ``donate_slots`` are honoured
+    when the program is called, as in ``lower_tdg``.
+    """
+    do_fuse = fuse_enabled(fuse)
+    fn = _base_function(tdg, list(outputs) if outputs is not None else None,
+                        do_fuse, min_class_size, batcher)
+    tensors = tensor_tree(dict(buffers))
+    specs = spec_of(tensors)
+    devices = {t.device for t in pytree.tree_leaves(tensors)}
+    if len(devices) != 1 or next(iter(devices)).type == "meta":
+        raise ValueError(f"aot_compile_tdg needs tensors on one real device, got "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    t0 = time.perf_counter()
+    # One call on fake tensors first: the fusion plan's cost-model probes run
+    # (and are cached) here, on the real devices' signatures, so the export
+    # finds every batcher decision made and traces no probe into the program.
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    fakes = pytree.tree_map(mode.from_tensor, tensors)
+    with torch.no_grad(), mode:
+        fn(fakes)
+    cost = _cost_analysis(fn, fakes, mode)
+    with torch.no_grad():
+        program = torch.export.export(_Program(fn), (tensors,), strict=False)
+    # The program would keep (and save) its example inputs: the buffers
+    # themselves, a model's params included. An artifact holds no data.
+    try:
+        program.example_inputs = None
+    except AttributeError:      # a torch without the property's setter
+        program._example_inputs = None
+    t1 = time.perf_counter()
+    aot = AotExecutable(program=program, input_specs=specs, fused=do_fuse,
+                        donate_slots=tuple(k for k in donate_slots if k in specs),
+                        cost_analysis=cost, device=device)
+    aot.trace_seconds, aot.compile_seconds = t1 - t0, time.perf_counter() - t1
+    return aot

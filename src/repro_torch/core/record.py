@@ -164,12 +164,27 @@ class TaskGraphRegion:
         self.replays += 1
         return self._finish(out)
 
-    def warmup(self, **buffers):
-        """Ahead-of-time compilation of a replay, to persist it for other
-        processes, waits for serialization (ROADMAP queue item 11)."""
-        raise NotImplementedError(
-            "TaskGraphRegion.warmup waits for serialization (ROADMAP.md, queue "
-            "item 11: an exported program in place of the .aot sidecar)")
+    def warmup(self, **buffers) -> _lower.AotExecutable:
+        """Export the replay program for these buffers' specs, ahead of time.
+
+        ``buffers`` are real tensors on the device the program is for (pair
+        with ``build_static`` for a warmup before any record). The program is
+        installed in the replay cache, so the next matching call replays it
+        with no lowering or tracing, and the returned ``AotExecutable`` can be
+        persisted for other processes with ``serialize.save_executable``.
+        """
+        if self.tdg is None:
+            raise RuntimeError(
+                f"region {self.name!r} has no TDG yet — call build_static() "
+                "or record once before warming up")
+        mode = _kreg.resolved_mode()
+        with _kreg.kernel_mode_scope(mode):
+            aot = _lower.aot_compile_tdg(self.tdg, buffers, outputs=self.outputs,
+                                         donate_slots=self.donate_slots,
+                                         fuse=self.fuse, batcher=self.batcher)
+        self._replay_cache[(buffers_signature(buffers), mode,
+                            _costmodel.plan_key(self.batcher))] = aot
+        return aot
 
     def __call__(self, **buffers) -> dict:
         if self.tdg is None:

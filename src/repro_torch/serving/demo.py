@@ -1,24 +1,31 @@
-"""Demo payloads and regions for the serving tier's tests and examples.
+"""Importable demo payloads for the serving and cluster tiers' tests.
 
-Port of ``repro.serving.demo``. The reference keeps its payloads in a
-``TaskFnRegistry`` so cluster workers can re-link them by name; the port has
-neither serialization (ROADMAP.md, queue A item 11) nor the cluster tier
-(item 14), so the payloads are plain module-level functions.
+Port of ``repro.serving.demo``. Worker processes re-link task payloads *by
+registered name* (the TDG JSON carries symbols, not code — the paper's
+compiler-emitted-TDG contract), so any payload driven through
+:class:`~repro_torch.serving.cluster.ClusterFrontend` must live in a module
+both the frontend and the spawned workers can import. Pass
+``registry="repro_torch.serving.demo:DEMO_REGISTRY"``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.serialize import TaskFnRegistry
 from ..core.tdg import TDG
 
+DEMO_REGISTRY = TaskFnRegistry()
 
+
+@DEMO_REGISTRY.register("demo_mix")
 def demo_mix(x, w):
     """The serving benchmark's body: a tanh-matmul residual mix."""
     return torch.tanh(x @ w) * 0.5 + x
 
 
+@DEMO_REGISTRY.register("demo_affine")
 def demo_affine(x, w):
-    """A second, structurally distinguishable payload."""
+    """A second, structurally distinguishable payload (different symbol)."""
     return x @ w + 1.0
 
 

@@ -18,10 +18,10 @@ structure class, occupancy, bucket, join/leave/shed events, per-tier
 membership, wall time, and a straggler flag (wall time > 3x the class's
 EMA) — dumpable as JSON (:meth:`ExecutionTraceRing.dump`).
 
-The reference's AOT counters (``aot_served``, ``aot_hydrate_failures``,
-``aot_topology_rejects``) stay in the snapshot as zeros: the port has no
-AOT executables until serialization is ported (ROADMAP.md, queue A item
-11).
+The AOT counters count requests served by an exported program
+(``aot_served``), warm artifacts that could not be hydrated
+(``aot_hydrate_failures``) and those rejected for another device topology
+(``aot_topology_rejects``, a hydrate failure too).
 
 Everything here is lock-protected and cheap (O(1) per event, bounded
 memory), so metrics can stay on in production serving paths.
@@ -217,6 +217,9 @@ class ServerMetrics:
         self.shed = 0                 # rejected at admission: queue bound hit
         self.deadline_sheds = 0       # dropped unexecuted: deadline expired
         self.rate_limited = 0         # refused at admission: token bucket dry
+        self.aot_served = 0           # requests served by an exported program
+        self.aot_hydrate_failures = 0  # a warm artifact present but unusable
+        self.aot_topology_rejects = 0  # an artifact for another device topology
         self.joins = 0                # members admitted into resident batches
         self.leaves = 0               # members retired from resident batches
         self.pad_lanes = 0            # idle lanes run to round batches up
@@ -264,12 +267,14 @@ class ServerMetrics:
                 self.coalesced_requests += occupancy
 
     def on_done(self, latency_seconds: float, failed: bool = False,
-                tier: int | None = None) -> None:
+                aot: bool = False, tier: int | None = None) -> None:
         with self._lock:
             if failed:
                 self.failed += 1
             else:
                 self.completed += 1
+            if aot:
+                self.aot_served += 1
             self.latency.record(latency_seconds)
             if tier is not None and not failed:
                 res = self.tier_latency.get(tier)
@@ -311,6 +316,22 @@ class ServerMetrics:
             self.leaves += rec.get("leaves", 0)
         self.trace.record(rec)
 
+    def on_aot_hydrate_failure(self) -> None:
+        """A warm artifact existed but could not be hydrated: the tenant is
+        lowered instead, and this counter keeps the fallback from passing
+        for warm in aggregated stats."""
+        with self._lock:
+            self.aot_hydrate_failures += 1
+
+    def on_aot_topology_reject(self) -> None:
+        """A shipped artifact was exported for another device topology:
+        counted as a hydrate failure too (the tenant re-lowers), and apart,
+        since a spike means artifacts are shipped across platforms or
+        versions."""
+        with self._lock:
+            self.aot_topology_rejects += 1
+            self.aot_hydrate_failures += 1
+
     def on_batch_fallback(self) -> None:
         with self._lock:
             self.batch_fallbacks += 1
@@ -343,10 +364,9 @@ class ServerMetrics:
                 "batches": self.batches,
                 "coalesced_requests": self.coalesced_requests,
                 "batch_fallbacks": self.batch_fallbacks,
-                # no AOT executables before serialization (queue A item 11)
-                "aot_served": 0,
-                "aot_hydrate_failures": 0,
-                "aot_topology_rejects": 0,
+                "aot_served": self.aot_served,
+                "aot_hydrate_failures": self.aot_hydrate_failures,
+                "aot_topology_rejects": self.aot_topology_rejects,
                 "shed": self.shed,
                 "deadline_sheds": self.deadline_sheds,
                 "rate_limited": self.rate_limited,

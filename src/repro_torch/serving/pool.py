@@ -1,13 +1,19 @@
 """Warm-executable pool: the shared, LRU-bounded resource of the server.
 
-Port of ``repro.serving.pool``. The pool holds the cross-request batched
-callables (one ``torch.func.vmap``-batched replay serving a whole admission
-batch, captured as CUDA graphs on the card), keyed by the TDG's canonical
-structure + payload identities + kernel mode — never by tenant name — so N
-tenants with structurally identical regions share one entry. Single-request
-replay callables live in ``core.lower``'s global structural intern cache
-instead. The reference's AOT entries wait for serialization (ROADMAP.md,
-queue A item 11).
+Port of ``repro.serving.pool``. The pool holds
+
+* the cross-request **batched** callables (one ``torch.func.vmap``-batched
+  replay serving a whole admission batch, captured as CUDA graphs on the
+  card), keyed by the TDG's canonical structure + payload identities +
+  kernel mode — never by tenant name — so N tenants with structurally
+  identical regions share one entry;
+* **AOT** programs (``lower.AotExecutable``) hydrated from ``.aot``
+  sidecars or shipped bytes, or exported by an explicit warmup. These are
+  keyed per tenant: a program's input specs carry that tenant's slot names
+  and buffer shapes.
+
+Single-request replay callables live in ``core.lower``'s global structural
+intern cache instead.
 
 Entries pin their payload closures (strong refs): ``id()``-based keys are
 only sound while the objects they name stay alive. An entry that leaves the
@@ -25,13 +31,15 @@ from typing import Any, Callable
 
 @dataclasses.dataclass
 class PoolEntry:
-    """One warm callable. ``payloads`` pins the task payload functions whose
-    ``id()``s appear in the pool key."""
+    """One warm callable: ``kind`` is ``"batched"`` or ``"aot"`` (an
+    ``lower.AotExecutable``). ``payloads`` pins the task payload functions
+    whose ``id()``s appear in the pool key."""
 
     kind: str
     fn: Callable[..., Any]
     payloads: tuple = ()
     hits: int = 0
+    meta: dict = dataclasses.field(default_factory=dict)
 
 
 def _release(entry: PoolEntry) -> None:
@@ -50,7 +58,7 @@ class WarmPool:
         self._entries: collections.OrderedDict[tuple, PoolEntry] = \
             collections.OrderedDict()
         self._counters = {"hits": 0, "misses": 0, "evictions": 0,
-                          "invalidations": 0}
+                          "hydrations": 0, "invalidations": 0}
 
     def get(self, key: tuple) -> PoolEntry | None:
         """Look up ``key``, counting a hit (and refreshing LRU) or a miss."""
@@ -64,13 +72,16 @@ class WarmPool:
             self._entries.move_to_end(key)
             return entry
 
-    def put(self, key: tuple, entry: PoolEntry) -> PoolEntry:
+    def put(self, key: tuple, entry: PoolEntry, hydrated: bool = False) -> PoolEntry:
         """Install ``entry`` under ``key`` (first writer wins on a race) and
         return the stored entry; evicts least-recently-used entries beyond
-        ``capacity``."""
+        ``capacity``. ``hydrated=True`` counts an installed entry in
+        ``hydrations`` (a program hydrated from a warm artifact)."""
         with self._lock:
             stored = self._entries.setdefault(key, entry)
             self._entries.move_to_end(key)
+            if hydrated and stored is entry:
+                self._counters["hydrations"] += 1
             evicted = []
             while len(self._entries) > self.capacity:
                 evicted.append(self._entries.popitem(last=False)[1])
@@ -98,7 +109,7 @@ class WarmPool:
         return len(dead)
 
     def stats(self) -> dict:
-        """Hit/miss/eviction/invalidation counters, the entry count, and
+        """Hit/miss/eviction/hydration/invalidation counters, the entry count, and
         ``hot``: kind + hits per live entry, hottest first (churn that
         re-slices the same pooled callable shows as a few hot entries, a
         churn-driven rebuild as many one-hit ones)."""

@@ -50,11 +50,18 @@ execution, as in the reference:
   requests go through ``core.lower``'s structural intern cache. Each
   tenant's kernel mode is read once at registration and re-entered around
   every call.
+* **Warm artifacts.** A tenant registered with ``warm_path`` re-links its
+  TDG JSON through a ``TaskFnRegistry`` and hydrates the exported replay
+  program of its ``.aot`` sidecar (``serialize.load_warm``) into the pool;
+  :meth:`RegionServer.warmup` exports one, :meth:`RegionServer.install_aot`
+  plants one hydrated elsewhere (the cluster tier's shipped bytes). A single
+  request whose buffers match the program's specs is served by it
+  (``aot_served``); a sidecar that cannot be hydrated is counted
+  (``aot_hydrate_failures``) and the tenant is lowered instead.
 * **Metrics**: queue depth, occupancy, pool hit rate, p50/p99 latency
   overall and per tier, and a per-step trace ring (:meth:`dump_trace`).
 
-AOT warm paths (``warm_path``, ``warmup``, ``install_aot``) wait for
-serialization (ROADMAP.md, queue A item 11), the replay mesh for item 13.
+The replay mesh waits (ROADMAP.md, queue A item 13).
 """
 from __future__ import annotations
 
@@ -71,6 +78,7 @@ from torch.utils import _pytree as pytree
 
 from ..core import costmodel as _costmodel
 from ..core import lower as _lower
+from ..core import serialize as _serialize
 from ..core.tdg import TDG, buffers_signature, structure_signature
 from ..kernels import registry as _kreg
 from .metrics import ServerMetrics
@@ -114,12 +122,6 @@ def continuous_default() -> bool:
     return raw not in ("0", "false", "off", "no")
 
 
-def _no_aot(what: str):
-    raise NotImplementedError(
-        f"RegionServer.{what} waits for serialization (ROADMAP.md, queue A item "
-        f"11: an exported program in place of the .aot sidecar)")
-
-
 @dataclasses.dataclass
 class Tenant:
     """One registered tenant: a region (TDG) plus its pinned kernel mode.
@@ -137,8 +139,10 @@ class Tenant:
     sig: tuple
     slot_map: dict[str, str]
     payloads: tuple
+    warm_path: str | None = None
     fuse: bool | str = "auto"
     capture: bool = True
+    aot_key: tuple | None = None
     requests: int = 0
     tier: int = 0
     rate: float = 0.0
@@ -171,7 +175,7 @@ class _Request:
     with the FINAL step's outputs)."""
 
     __slots__ = ("tenant", "buffers", "canon_buffers", "key", "future",
-                 "t_submit", "deadline", "steps", "steps_done")
+                 "t_submit", "served_aot", "deadline", "steps", "steps_done")
 
     def __init__(self, tenant: Tenant, buffers: dict, canon_buffers: dict,
                  key: tuple, deadline: float | None = None, steps: int = 1):
@@ -181,6 +185,7 @@ class _Request:
         self.key = key
         self.future: Future = Future()
         self.t_submit = time.monotonic()
+        self.served_aot = False
         self.deadline = deadline       # absolute time.monotonic(), or None
         self.steps = steps
         self.steps_done = 0
@@ -227,7 +232,12 @@ class RegionServer:
     default on) selects iteration-level batching; ``adaptive`` the bucket
     tuner's refits (``"auto"`` honours ``REPRO_TORCH_ADAPTIVE``).
     ``capture=False`` lowers served steps uncaptured (the port's own
-    option: the baseline captured steps are compared with).
+    option: the baseline captured steps are compared with). ``device`` is
+    where warm artifacts are hydrated and checked against (``None``: the
+    card when there is one, else the CPU, as ``serialize.local_device`` says:
+    an in-process convenience; a ``WorkerNode`` always passes the device it
+    resolved, which raises without a card). Served steps run where their
+    tensors are.
     """
 
     def __init__(self, max_batch: int = 8, max_wait_ms: float = 2.0,
@@ -236,8 +246,10 @@ class RegionServer:
                  queue_bound: int | None = None,
                  continuous: bool | None = None,
                  adaptive: bool | str = "auto",
-                 capture: bool = True):
+                 capture: bool = True,
+                 device: str | torch.device | None = None):
         self.name = name
+        self.device = _serialize.local_device(device)
         self.max_batch = max(1, int(max_batch))
         self.max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
         self.queue_bound = (queue_bound_default() if queue_bound is None
@@ -296,17 +308,42 @@ class RegionServer:
         self.close()
 
     # ------------------------------------------------------------- tenants
-    def register_tenant(self, name: str, tdg: TDG, *,
+    def register_tenant(self, name: str, tdg: TDG | None = None, *,
                         outputs: tuple[str, ...] | None = None,
                         kernel_mode: str | None = None,
+                        warm_path: str | None = None,
+                        fn_registry: "_serialize.TaskFnRegistry | None" = None,
                         tier: int | None = None,
-                        rate: float | None = None) -> Tenant:
-        """Register ``tdg`` as tenant ``name``, pinning the kernel mode.
+                        rate: float | None = None,
+                        aot: "_lower.AotExecutable | None" = None) -> Tenant:
+        """Register a tenant by TDG, or hydrate one from a warm artifact.
+
+        Exactly one of ``tdg`` / ``warm_path`` selects the region source:
+        ``warm_path`` names a TDG JSON written by ``serialize.warmup_and_save``
+        (payloads re-linked through ``fn_registry``); if its ``.aot`` sidecar
+        hydrates here, the program is installed in the warm pool, so this
+        tenant's first single request replays it with no lowering. A sidecar
+        that is present but cannot be hydrated is counted in
+        ``aot_hydrate_failures`` and the tenant is lowered as usual: hydration
+        is an optimization, never a correctness dependency. ``aot`` installs
+        a program hydrated by the caller (the cluster worker's shipped bytes)
+        the same way. A tenant without a program is lowered here (cheap:
+        nothing is captured until a call), so tenant 1 misses the intern cache
+        and every structurally identical tenant after it hits.
 
         ``tier`` (QoS priority) and ``rate`` (sustained req/s through a
         token bucket; 0 = unlimited) default to the ``REPRO_TENANT_TIER`` /
         ``REPRO_TENANT_RATE`` specs.
         """
+        if (tdg is None) == (warm_path is None):
+            raise ValueError("pass exactly one of tdg= or warm_path=")
+        sidecar_present = False
+        if warm_path is not None:
+            if fn_registry is None:
+                raise ValueError("warm_path= requires fn_registry= to re-link task payloads")
+            sidecar_present = os.path.exists(str(warm_path) + ".aot")
+            tdg, loaded = _serialize.load_warm(warm_path, fn_registry, device=self.device)
+            aot = aot or loaded
         tdg.validate()
         mode = (_kreg.kernel_mode() if kernel_mode is None
                 else _kreg.validate_mode(kernel_mode))
@@ -315,7 +352,8 @@ class RegionServer:
         tenant = Tenant(name=name, tdg=tdg,
                         outputs=tuple(outputs) if outputs is not None else None,
                         kernel_mode=mode, sig=sig, slot_map=slot_map,
-                        payloads=payloads, fuse=self.fuse, capture=self.capture,
+                        payloads=payloads, warm_path=warm_path, fuse=self.fuse,
+                        capture=self.capture,
                         tier=tenant_tier_default(name) if tier is None else max(0, int(tier)),
                         rate=(tenant_rate_default(name) if rate is None
                               else max(0.0, float(rate))))
@@ -323,10 +361,11 @@ class RegionServer:
             if name in self._tenants:
                 raise ValueError(f"tenant {name!r} already registered")
             self._tenants[name] = tenant
-        # Lowering is cheap here (nothing is captured until a call), so it
-        # happens at registration: tenant 1 misses the intern cache and every
-        # structurally identical tenant after it hits, even when all their
-        # requests later coalesce and never take the single-request path.
+        if aot is not None:
+            self._install_aot(tenant, aot, hydrated=True)
+            return tenant
+        if sidecar_present:
+            self.metrics.on_aot_hydrate_failure()
         tenant.replay_fn()
         return tenant
 
@@ -338,12 +377,57 @@ class RegionServer:
             return self._tenants[name]
 
     def warmup(self, name: str, buffers: Mapping[str, Any]) -> dict:
-        """AOT compilation of a tenant's replay waits for serialization."""
-        _no_aot("warmup")
+        """Export a tenant's replay program for ``buffers``' specs into the pool.
 
-    def install_aot(self, name: str, aot: Any, hydrated: bool = False) -> None:
-        """Installing an AOT executable waits for serialization."""
-        _no_aot("install_aot")
+        ``buffers`` are real tensors on the device the program is for.
+        Returns the report (cost analysis, trace / compile seconds).
+        """
+        tenant = self.tenant(name)
+        with _kreg.kernel_mode_scope(tenant.kernel_mode):
+            aot = _lower.aot_compile_tdg(
+                tenant.tdg, buffers, fuse=tenant.fuse,
+                outputs=list(tenant.outputs) if tenant.outputs is not None else None)
+        self._install_aot(tenant, aot)
+        return {"tenant": name, "fused": aot.fused, "cost_analysis": aot.cost_analysis,
+                "trace_seconds": aot.trace_seconds, "compile_seconds": aot.compile_seconds}
+
+    def install_aot(self, name: str, aot: "_lower.AotExecutable",
+                    hydrated: bool = False) -> None:
+        """Install a program produced elsewhere for tenant ``name`` (the
+        cluster worker's hydrated shipped bytes); ``hydrated=True`` counts it
+        in the pool's ``hydrations``."""
+        self._install_aot(self.tenant(name), aot, hydrated=hydrated)
+
+    def _install_aot(self, tenant: Tenant, aot: "_lower.AotExecutable",
+                     hydrated: bool = False) -> None:
+        key = ("aot", tenant.name, aot.signature, tenant.kernel_mode)
+        self.pool.put(key, PoolEntry("aot", aot, tenant.payloads), hydrated=hydrated)
+        tenant.aot_key = key
+
+    def _aot_for(self, req: _Request) -> "_lower.AotExecutable | None":
+        """The tenant's program, iff this request's buffers match its specs.
+
+        A program the pool evicted is hydrated again from the tenant's
+        ``warm_path`` sidecar when there is one (counted in
+        ``aot_hydrate_failures`` when that fails, and then not retried)."""
+        tenant = req.tenant
+        if tenant.aot_key is None:
+            return None
+        entry = self.pool.get(tenant.aot_key)
+        if entry is not None:
+            return entry.fn if entry.fn.matches(req.buffers) else None
+        if tenant.warm_path is not None:
+            try:
+                aot = _serialize.load_executable(str(tenant.warm_path) + ".aot",
+                                                 device=self.device)
+            except Exception:
+                tenant.aot_key = None       # unrecoverable: stop retrying
+                self.metrics.on_aot_hydrate_failure()
+                return None
+            self._install_aot(tenant, aot, hydrated=True)
+            return aot if aot.matches(req.buffers) else None
+        tenant.aot_key = None
+        return None
 
     # ------------------------------------------------------------ admission
     def _make_request(self, tenant_name: str, buffers: Mapping[str, Any],
@@ -539,10 +623,14 @@ class RegionServer:
 
     def _graph_replays(self) -> list:
         """The ``GraphReplay`` objects this server's steps run through: its
-        tenants' interned single-request ones and every batched one built."""
+        tenants' interned single-request ones, every batched one built and
+        those of the pool's AOT programs."""
         with self._cv:
             tenants = list(self._tenants.values())
         found = {id(r): r for r in self._batched_replays}
+        for entry in self.pool.entries():
+            if entry.kind == "aot":
+                found[id(entry.fn.replay)] = entry.fn.replay
         for t in tenants:
             replay = getattr(t._fn, "graph_replay", None)
             if replay is not None:
@@ -649,7 +737,7 @@ class RegionServer:
                 self.metrics.on_done(now - r.t_submit, failed=True)
                 r.future.set_exception(out)
             else:
-                self.metrics.on_done(now - r.t_submit)
+                self.metrics.on_done(now - r.t_submit, aot=r.served_aot)
                 r.future.set_result(out)
 
     # ------------------------------------------- continuous (iteration-level)
@@ -826,7 +914,8 @@ class RegionServer:
             self.metrics.on_done(now - member.t_submit, failed=True)
             member.future.set_exception(exc)
         for member, out in done:
-            self.metrics.on_done(now - member.t_submit, tier=member.tenant.tier)
+            self.metrics.on_done(now - member.t_submit, aot=member.served_aot,
+                                 tier=member.tenant.tier)
             member.future.set_result(out)
         self.metrics.on_batch(len(group), coalesced=coalesced)
         tiers: dict[str, int] = {}
@@ -853,6 +942,11 @@ class RegionServer:
 
     # ------------------------------------------------------------- execution
     def _run_single(self, req: _Request) -> dict:
+        aot = self._aot_for(req)
+        if aot is not None:
+            req.served_aot = True
+            with torch.no_grad(), _kreg.kernel_mode_scope(req.tenant.kernel_mode):
+                return aot(req.buffers)
         fn = req.tenant.replay_fn()
         with torch.no_grad(), _kreg.kernel_mode_scope(req.tenant.kernel_mode):
             return fn(dict(req.buffers))

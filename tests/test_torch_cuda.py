@@ -853,3 +853,61 @@ def test_checkpoint_saved_while_the_next_in_place_step_runs(tmp_path):
             else:
                 assert torch.equal(restored[part][k], v)
     assert not torch.equal(restored["params"]["embed.table"], params["embed.table"])
+
+
+# ------------------------------------------------ exported replay programs
+
+def _decode_setup():
+    from repro_torch.launch import serve
+    from repro_torch.models import model as Mm
+
+    reg = serve.build_decode_registry(smoke=True, device="cuda")
+    cfg = serve.build_config("qwen2.5-3b", True)
+    params = Mm.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = serve.prompt_batch(cfg, 2, 8, 1, "cuda")
+    with torch.no_grad():
+        logits, caches, pos = Mm.prefill(params, cfg, batch, 12)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    from repro_torch.core import TDG
+    tdg = TDG("decode[0]")
+    tdg.add_task(reg.get("decode"), ins=["params", "tokens", "pos", "caches"],
+                 outs=["next", "caches"], name="decode")
+    bufs = {"params": Mm.params_of(params), "tokens": tok[:, None], "pos": pos,
+            "caches": caches}
+    return tdg, bufs
+
+
+def test_exported_decode_step_keeps_the_kernels_ops():
+    from repro_torch.core import aot_compile_tdg
+    tdg, bufs = _decode_setup()
+    aot = aot_compile_tdg(tdg, bufs)
+    code = aot.program.graph_module.code
+    assert "torch.ops.repro_torch.rmsnorm.default" in code
+    assert aot.device.type == "cuda" and aot.cost_analysis["flops"] > 0
+
+
+def test_hydrated_replay_is_bitwise_the_lowered_replay():
+    from repro_torch.core import aot_compile_tdg, executable_from_bytes, executable_to_bytes
+    from repro_torch.core import lower
+    tdg, bufs = _decode_setup()
+    hydrated = executable_from_bytes(executable_to_bytes(aot_compile_tdg(tdg, bufs)),
+                                     device="cuda")
+    with torch.no_grad():
+        want = lower.lower_tdg(tdg)(dict(bufs))
+        first = hydrated(bufs)                  # captures a CUDA graph
+        again = hydrated(bufs)                  # replays it
+    assert hydrated.replay.captures == 1
+    for got in (first, again):
+        assert torch.equal(got["next"], want["next"])
+        for a, b in zip(torch.utils._pytree.tree_leaves(got["caches"]),
+                        torch.utils._pytree.tree_leaves(want["caches"])):
+            assert torch.equal(a, b)
+
+
+def test_bf16_cuda_tensor_roundtrips_the_codec():
+    from repro_torch.serving import rpc
+    x = torch.randn(3, 5, device="cuda").to(torch.bfloat16)
+    for codec in ("json", "binary"):
+        back = rpc.decode(rpc.encode({"x": x, "s": x[0, 0]}, codec))
+        assert back["x"].device.type == "cpu" and back["x"].dtype == torch.bfloat16
+        assert torch.equal(back["x"], x.cpu()) and back["s"].shape == ()

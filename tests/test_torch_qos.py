@@ -189,13 +189,14 @@ def test_qos_env_defaults(monkeypatch):
 
 def test_typed_errors_cross_the_wire_by_name():
     """The port's typed errors carry the reference's names, which is what
-    the cluster tier's wire maps back to a type (the port's cluster tier is
-    ROADMAP item 14)."""
+    each package's cluster wire maps back to its own type."""
     from repro.serving import rpc
+    from repro_torch.serving import rpc as trpc
     for name in ("QueueFull", "DeadlineExceeded", "RateLimited"):
         cls = getattr(tserver_mod, name)
         assert cls.__name__ == name and issubclass(cls, RuntimeError)
         assert rpc.wire_error_class(f"{cls.__name__}: x") is getattr(jserver_mod, name)
+        assert trpc.wire_error_class(f"{cls.__name__}: x") is cls
 
 
 def test_queue_bound_env_default(monkeypatch):

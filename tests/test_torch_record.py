@@ -200,9 +200,29 @@ def test_as_function_and_nowait():
 
 
 def test_warmup_waits_for_serialization():
-    region = _mk_region(T)
-    region(**_inputs()[0])
-    with pytest.raises(NotImplementedError, match="queue item 11"):
-        region.warmup(**_inputs()[0])
-    with pytest.raises(NotImplementedError, match="queue item 11"):
-        T.ReplayExecutor(region.tdg).aot_compile(_inputs()[0])
+    """``warmup`` and ``aot_compile`` export the replay program ahead of
+    time (serialization is ported): installed in the replay cache, the next
+    call replays it with no lowering, equal to the reference's warmed
+    region; the executor's program equals its lowered replay bitwise."""
+    region, jregion = _mk_region(T), _mk_region(J)
+    tb, jb = _inputs()
+    region(**tb)
+    jregion(**jb)
+    aot = region.warmup(**tb)
+    jaot = jregion.warmup(**jb)
+    assert isinstance(aot, T.AotExecutable) and aot.fused == jaot.fused
+    assert aot.input_specs == {"x": ((4,), "float32"), "a": ((), "float32")}
+    assert aot.cost_analysis["bytes accessed"] > 0
+    out, jout = region(**tb), jregion(**jb)
+    assert region.replays == 1
+    for k in jout:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(jout[k]), rtol=1e-6)
+    ex = T.ReplayExecutor(region.tdg)
+    prog = ex.aot_compile(tb)
+    want = T.ReplayExecutor(region.tdg).run(dict(tb))
+    got = ex.run(dict(tb))
+    assert prog.matches(tb) and not prog.matches({"x": torch.zeros(5), "a": tb["a"]})
+    for k in want:
+        assert torch.equal(got[k], want[k])
+    with pytest.raises(ValueError, match="custom order"):
+        T.ReplayExecutor(region.tdg, order=[0, 1, 2]).aot_compile(tb)

@@ -107,6 +107,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Each path ends with one more coalesced decode round under
    ``torch.profiler`` (and, request-level, one prefill), printing the
    card's busy and idle shares and the kernels that take the device time.
+3m. The replay mesh, over 2 virtual shards on this card (a mesh of
+   repeated ``cuda:0``: the card is one), each part with counts zeroed
+   just before it and read just after: (a) with the dense path's weights,
+   qwen2.5-3b served through ``RegionServer(mesh=...)``: 4 tenants prefill
+   4 x 512 tokens, then 8 rounds of one 4-tenant step (``submit_many``),
+   each step the bucket of 4 split into 2 shards that replay the captured
+   2-tenant step; each round's inputs then go through a server without a
+   mesh as 2 calls of 2 tenants (every token, f32 logit and cache bitwise
+   equal) and as 1 call of 4 (logits within relative L2 2e-2, tokens equal
+   but at ties, counted); 1 capture, flash attention 36 times a tenant in
+   prefill, RMSNorm in prefill and decode; the step p50 sharded against
+   unsharded. (b) the taskgraph phase's bf16 RMSNorm blocks (65,536 x 2048,
+   depth 2) and attention blocks (64 x 2048 x 16 heads of 128), 16 blocks
+   each, lowered over the mesh and captured: every output bitwise equal to
+   ``mesh=None``'s captured replay, one capture, both kernels launched. (c)
+   one qwen3-moe layer at full width (128 experts top-8, expert d_ff 768,
+   bf16 compute) on 4 x 512 tokens, expert-parallel over a (1 data x 2
+   model) mesh with its routing pinned to the global dispatch's: within
+   relative L2 2e-2, ``grouped_matmul_sm90`` launched 3 times a shard.
 4. Families: the reference's other seven models, one at a time (the
    previous one freed), f32 params from a seeded card generator, bf16
    compute, each through the default server exactly as a path of phase 3
@@ -228,8 +247,8 @@ counts do not see).
 The last lines are one ``{"kernels": [...]}`` JSON object (with each op's
 backward rule: ``backward_ms``, ``backward_bound_ms``, ...), one
 ``{"taskgraph": [...]}`` object, one ``{"training": {...}}`` object, one
-``{"families": {...}}`` object, one ``{"cluster": {...}}`` object and then
-``{"ok": true, "device": {...}}``.
+``{"families": {...}}`` object, one ``{"cluster": {...}}`` object, one
+``{"mesh": {...}}`` object and then ``{"ok": true, "device": {...}}``.
 Needs a CUDA card and the repository beside this file.
 """
 from __future__ import annotations
@@ -1321,7 +1340,291 @@ def run_dense(kernels, registry) -> dict:
     gap = logits_gap(params, cfg, run["prompts"][0], run["max_len"], registry,
                      run["states"][0]["out"][:1])
     check_gap("dense", gap, 2e-2)
+    runs["mesh serve"] = serve_mesh(cfg, params, kernels)
     return runs
+
+
+# ---------------------------------------------------------------- the replay mesh
+
+def _virtual_mesh(shape: tuple, names: tuple):
+    """A mesh whose every position is this card (virtual shards): the
+    counterpart of the reference's fake host devices on one machine."""
+    from repro_torch.launch.mesh import ReplayMesh
+
+    n = 1
+    for size in shape:
+        n *= size
+    return ReplayMesh(shape, names, [torch.device("cuda", 0)] * n)
+
+
+def _tree_equal(a, b) -> bool:
+    la, lb = torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _near_ties(label: str, a: dict, b: dict) -> int:
+    """Rows whose greedy tokens differ between two steps' outputs (``next``,
+    f32 ``logits`` of bf16 products): each must be a tie at the runs'
+    precision, i.e. each run's logit for the other's token within the rows'
+    largest logit difference of its own maximum. Returns how many differ."""
+    rows = (a["next"] != b["next"]).nonzero().flatten().tolist()
+    for r in rows:
+        la, lb = a["logits"][r], b["logits"][r]
+        d = (la - lb).abs().max().item()
+        ta, tb = a["next"][r].item(), b["next"][r].item()
+        if not (lb.max() - lb[ta] <= d and la.max() - la[tb] <= d):
+            raise AssertionError(f"{label} row {r}: tokens {ta} / {tb} differ by more than a "
+                                 f"tie (logits differ by {d:.3g})")
+    return len(rows)
+
+
+def serve_mesh(cfg, params, kernels: dict) -> dict:
+    """Phase 3m (a): the dense model served through ``RegionServer(mesh=...)``
+    over 2 virtual shards on this card. 4 tenants prefill 4 x 512 tokens,
+    then 8 rounds, each one step of all 4 (``submit_many``): the bucket of 4
+    splits into 2 shards of 2 tenants, each shard one replay of the
+    captured 2-tenant step. Counts are zeroed just before the prefill and
+    read just after the 8 rounds. Then each round's inputs go through a
+    server without a mesh, twice: as 2 calls of 2 tenants (the shards' own
+    occupancy: every token, logit and cache bitwise equal) and as 1 call of
+    4 (a 4-tenant step's products run at another M: logits within relative
+    L2 2e-2, and the same tokens but at ties, where the two runs' top
+    logits are equal to within their difference; bf16 products give such
+    ties often over a 152k vocabulary, and each is counted)."""
+    from repro_torch.core import TDG, lower
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import model as M
+    from repro_torch.serving import RegionServer
+
+    max_len = PROMPT + DECODE_STEPS + 1
+    prompts = [prompt_batch(cfg, BATCH, PROMPT, 1 + i, "cuda") for i in range(TENANTS)]
+
+    def decode(params, tokens, pos, caches):
+        logits, caches = M.decode_step(params, cfg, tokens, pos, caches)
+        last = logits[:, -1]
+        return torch.argmax(last, dim=-1).to(torch.int32), last, caches
+
+    def server(mesh, name):
+        srv = RegionServer(max_batch=TENANTS, max_wait_ms=5.0, name=name, mesh=mesh)
+        for i in range(TENANTS):
+            tdg = TDG(f"decode[{i}]")
+            tdg.add_task(decode, ins=["params", "tokens", "pos", "caches"],
+                         outs=["next", "logits", "caches"], name="decode")
+            srv.register_tenant(f"tenant{i}", tdg, outputs=("next", "logits", "caches"))
+        return srv
+
+    def step(srv, states, tenants) -> tuple[list, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = srv.submit_many([(f"tenant{i}", _decode_request(params, states[i]))
+                                for i in tenants])
+        outs = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        return outs, (time.perf_counter() - t0) * 1e3
+
+    lower.clear_intern_cache()
+    mesh = _virtual_mesh((2,), ("data",))
+    # ---- main path: counts zeroed just before, read just after
+    for mod in kernels.values():
+        mod.reset_launches()
+    states = []
+    for i in range(TENANTS):
+        logits, caches, pos = M.prefill(params, cfg, prompts[i], max_len)
+        states.append({"tok": torch.argmax(logits[:, -1], dim=-1).to(torch.int32),
+                       "pos": pos, "caches": caches})
+    del logits, caches, pos
+    in_prefill = read_counts(kernels)
+    sharded = server(mesh, "chip-smoke-mesh")
+    rounds, mesh_ms = [], []
+    try:
+        for _ in range(DECODE_STEPS):
+            outs, ms = step(sharded, states, range(TENANTS))
+            rounds.append((states, outs))
+            mesh_ms.append(ms)
+            states = [{"tok": o["next"], "pos": st["pos"] + 1, "caches": o["caches"]}
+                      for st, o in zip(states, outs)]
+        total = read_counts(kernels)
+        # ---- end of the main path
+        stats = sharded.stats()
+        occupancy = [r["occupancy"] for r in sharded.metrics.trace.snapshot()]
+    finally:
+        sharded.close()
+    in_decode = {k: total[k] - in_prefill[k] for k in total}
+
+    plain = server(None, "chip-smoke-mesh-plain")
+    two_ms, four_ms, gaps, ties = [], [], [], 0
+    try:
+        for r, (ins, outs) in enumerate(rounds):
+            two, ms_a = step(plain, ins, (0, 1))
+            two_b, ms_b = step(plain, ins, (2, 3))
+            four, ms = step(plain, ins, range(TENANTS))
+            two_ms.append(ms_a + ms_b)
+            four_ms.append(ms)
+            for i, (o, t, f) in enumerate(zip(outs, two + two_b, four)):
+                if not _tree_equal(o, t):
+                    raise AssertionError(f"mesh serve round {r} tenant {i}: the sharded step "
+                                         f"differs from the unsharded step of 2 tenants")
+                ties += _near_ties(f"mesh serve round {r} tenant {i}", o, f)
+                if not torch.isfinite(o["logits"]).all():
+                    raise AssertionError(f"mesh serve round {r}: logits not finite")
+            v = cfg.vocab_size          # the pad columns' -1e30 left out
+            gaps.append(rel_l2(torch.cat([o["logits"][:, :v] for o in outs]),
+                               torch.cat([f["logits"][:, :v] for f in four])))
+        plain_stats = plain.stats()
+    finally:
+        plain.close()
+    gap = max(gaps)
+    graphs = stats["graphs"]
+    p50 = statistics.median(mesh_ms)
+    log(f"mesh serve: {stats['mesh']}, steps of {occupancy}; {graphs['captures']} captures "
+        f"({graphs['capture_ms']:.1f} ms); step p50 {p50:.2f} ms sharded (2 x 2 tenants), "
+        f"{statistics.median(two_ms):.2f} ms unsharded as 2 calls of 2, "
+        f"{statistics.median(four_ms):.2f} ms unsharded 1 call of 4; server p50 "
+        f"{stats['metrics']['latency']['p50_s'] * 1e3:.2f} ms (unsharded server "
+        f"{plain_stats['metrics']['latency']['p50_s'] * 1e3:.2f} ms)")
+    log(f"mesh serve: every step bitwise equal to the unsharded steps of 2 tenants; tokens "
+        f"equal to the unsharded steps of 4 but {ties} of "
+        f"{DECODE_STEPS * TENANTS * BATCH} (each a tie at the two runs' precision); logits "
+        f"rel L2 up to {gap:.3g} (limit 2e-2)")
+    log(f"mesh serve launches: " + "; ".join(f"{k} {in_prefill[k]} in prefill + "
+                                             f"{in_decode[k]} in decode" for k in total))
+    if occupancy != [TENANTS] * DECODE_STEPS:
+        raise AssertionError(f"mesh serve: steps of {occupancy}, want {DECODE_STEPS} of "
+                             f"{TENANTS}")
+    if stats["mesh"] != "data=2" or graphs["captures"] != 1:
+        raise AssertionError(f"mesh serve: mesh {stats['mesh']}, {graphs['captures']} "
+                             f"captures (want data=2 and one graph for both shards)")
+    if gap > TOL[torch.bfloat16]:
+        raise AssertionError(f"mesh serve: logits differ by rel L2 {gap:.3g}")
+    if in_prefill["flash_attention_sm90"] != TENANTS * cfg.num_layers:
+        raise AssertionError(f"mesh serve: flash attention launched "
+                             f"{in_prefill['flash_attention_sm90']} times in prefill")
+    if not (in_prefill["rmsnorm_sm90"] > 0 and in_decode["rmsnorm_sm90"] > 0):
+        raise AssertionError("mesh serve: rmsnorm_sm90 did not launch in prefill and decode")
+    del rounds, states
+    lower.clear_intern_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill": in_prefill, "decode": in_decode, "replayed": {},
+            "mesh": {"mesh": stats["mesh"], "captures": graphs["captures"],
+                     "capture_ms": graphs["capture_ms"], "step_p50_ms": p50,
+                     "unsharded_2x2_p50_ms": statistics.median(two_ms),
+                     "unsharded_4_p50_ms": statistics.median(four_ms),
+                     "logits_rel_l2": gap, "bitwise_vs_2_tenant_calls": True,
+                     "tokens_tied_vs_4_tenant_call": ties,
+                     "launches": {"prefill": in_prefill, "decode": in_decode}}}
+
+
+MESH_WAVES = (("rmsnorm", {"n_tokens": 65536, "d": 2048, "depth": 2,
+                           "dtype": torch.bfloat16}, 16),
+              ("attention", {"n_seqs": 64, "seq": 2048, "heads": 16, "head_dim": 128,
+                             "dtype": torch.bfloat16}, 16))
+
+
+def mesh_waves(kernels: dict) -> dict:
+    """Phase 3m (b): the taskgraph phase's bf16 RMSNorm and attention waves
+    (16 blocks) lowered over 2 virtual shards (``lower_tdg(mesh=...)``,
+    captured: one graph holds both shards' launches) against the same region
+    lowered with ``mesh=None``, captured: every output bitwise equal. Counts
+    are zeroed just before the sharded runs and read just after."""
+    from repro_torch import workloads
+    from repro_torch.core import lower, lower_tdg
+
+    mesh = _virtual_mesh((2,), ("data",))
+    cases = []
+    for name, sizes, nb in MESH_WAVES:
+        tdg, bufs, verify = workloads.WORKLOADS[name](**sizes, nb=nb, device="cuda")
+        plain = lower_tdg(tdg, mesh=None, batcher="vmap")
+        cases.append((name, tdg, bufs, verify, plain, plain(bufs)))
+    # ---- main path: counts zeroed just before, read just after
+    for mod in kernels.values():
+        mod.reset_launches()
+    got = []
+    for name, tdg, bufs, verify, plain, want in cases:
+        sharded = lower_tdg(tdg, mesh=mesh, batcher="vmap")
+        first = sharded(bufs)                         # warm-up and capture
+        ms, again = _median_ms(lambda: sharded(bufs))
+        got.append((sharded, first, again, ms))
+    counts = read_counts(kernels)
+    # ---- end of the main path
+    out = {}
+    for (name, tdg, bufs, verify, plain, want), (sharded, first, again, ms) in zip(cases, got):
+        for label, o in (("first call", first), ("replay", again)):
+            if set(o) != set(want) or not all(torch.equal(o[k], want[k]) for k in want):
+                raise AssertionError(f"mesh waves {name}: the sharded {label} differs from "
+                                     f"the unsharded replay")
+        verify(again)
+        plain_ms, _ = _median_ms(lambda: plain(bufs))
+        captures = sharded.graph_replay.captures
+        if captures != 1:
+            raise AssertionError(f"mesh waves {name}: {captures} captures, want 1")
+        out[name] = {"sharded_ms": ms, "unsharded_ms": plain_ms, "captures": captures,
+                     "bitwise": True}
+        log(f"mesh waves {name}[{len(tdg.tasks)} tasks, 2 shards]: bitwise equal to the "
+            f"unsharded replay; captured replay {ms:.2f} ms sharded, {plain_ms:.2f} ms "
+            f"unsharded (medians of {REPS}); {captures} capture")
+    log(f"mesh waves launches (warm-up and capture only): {counts}")
+    for kernel in ("rmsnorm_sm90", "flash_attention_sm90"):
+        if not counts[kernel] > 0:
+            raise AssertionError(f"mesh waves: {kernel} never launched")
+    del cases, got
+    lower.clear_intern_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": out, "launches": counts}
+
+
+def mesh_experts(kernels: dict) -> dict:
+    """Phase 3m (c): one qwen3-moe layer at full width (d 2048, 128 experts
+    top-8, expert d_ff 768, bf16 compute) on 4 x 512 tokens, expert-parallel
+    (``moe_impl="shard_map"``) over a (1 data x 2 model) virtual mesh
+    against the global dispatch, the sharded run's routing pinned to the
+    unsharded run's: within relative L2 2e-2, and ``grouped_matmul_sm90``
+    launched 3 times a model shard. Counts are zeroed just before the
+    sharded call and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.sharding import partition
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    layer = moe.MoE(cfg, device="cuda")
+    g = torch.Generator("cuda").manual_seed(0)
+    for mod in layer.modules():
+        if hasattr(mod, "init_"):
+            mod.init_(g)
+    x = randn(BATCH, PROMPT, cfg.d_model, dtype=torch.bfloat16,
+              gen=torch.Generator("cuda").manual_seed(7))
+    sm = dataclasses.replace(cfg, moe_impl="shard_map")
+    mesh = _virtual_mesh((1, 2), ("data", "model"))
+    routes, own = [], []
+    with torch.no_grad(), recorded_routing(routes):
+        want, aux_w = moe.moe_apply(layer, cfg, x)
+    # ---- main path: counts zeroed just before, read just after
+    for mod in kernels.values():
+        mod.reset_launches()
+    with torch.no_grad(), partition.use_mesh(mesh), pinned_routing(routes, own):
+        got, aux_g = moe.moe_apply(layer, sm, x)
+    counts = read_counts(kernels)
+    # ---- end of the main path
+    diff, total = routing_diff(routes, own)
+    err = rel_l2(got, want)
+    with torch.no_grad():
+        plain_ms, _ = _median_ms(lambda: moe.moe_apply(layer, cfg, x))
+        with partition.use_mesh(mesh):
+            sharded_ms, _ = _median_ms(lambda: moe.moe_apply(layer, sm, x))
+    log(f"mesh experts: {cfg.num_experts} experts over model=2 ({cfg.num_experts // 2} a "
+        f"shard), {BATCH}x{PROMPT} tokens: rel L2 {err:.3g} (max abs "
+        f"{(got.float() - want.float()).abs().max().item():.3g}), aux {aux_g.item():.6g} vs "
+        f"{aux_w.item():.6g}; limit 2e-2; its own router would change {diff} of {total} "
+        f"choices; {sharded_ms:.2f} ms sharded, {plain_ms:.2f} ms unsharded (medians of "
+        f"{REPS}); launches {counts}")
+    if not (err <= TOL[torch.bfloat16] and torch.isfinite(got.float()).all()):
+        raise AssertionError("mesh experts: the expert-parallel layer disagrees")
+    if counts["grouped_matmul_sm90"] != 3 * 2:
+        raise AssertionError(f"mesh experts: grouped_matmul_sm90 launched "
+                             f"{counts['grouped_matmul_sm90']} times, want 3 a shard (6)")
+    return {"rel_l2": err, "sharded_ms": sharded_ms, "unsharded_ms": plain_ms,
+            "routing_changed": diff, "launches": counts}
 
 
 @contextlib.contextmanager
@@ -2750,7 +3053,7 @@ def main() -> int:
     log(f"phase 2 (kernels and their backward rules) took {time.perf_counter() - t0:.1f} s")
 
     kernels = {"rmsnorm": rms, "flash_attention": fa, "grouped_matmul": gmm, "ssd": ssd}
-    runs, replayed = {}, {}
+    runs, replayed, mesh = {}, {}, {}
     for family, run_fn in (("dense", run_dense), ("moe", run_moe), ("mamba2", run_mamba)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2758,6 +3061,8 @@ def main() -> int:
         for label, run in run_fn(kernels, registry).items():
             runs[label] = {k: run["prefill"][k] + run["decode"][k] for k in run["prefill"]}
             replayed[label] = run["replayed"]
+            if "mesh" in run:
+                mesh["serve"] = run["mesh"]
         gc.collect()
         torch.cuda.empty_cache()
         log(f"paths {family}: {time.perf_counter() - t0:.1f} s, peak device memory "
@@ -2765,6 +3070,15 @@ def main() -> int:
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved after freeing the model")
         if torch.cuda.memory_reserved() > RESERVED_LIMIT:
             raise AssertionError(f"{family}: more than 8 GiB reserved after freeing the model")
+
+    # ---- the replay mesh's waves and experts: each zeroes the counts just
+    # before its sharded runs and reads them just after
+    t0 = time.perf_counter()
+    mesh["waves"] = mesh_waves(kernels)
+    runs["mesh waves"] = mesh["waves"].pop("launches")
+    mesh["experts"] = mesh_experts(kernels)
+    runs["mesh experts"] = mesh["experts"].pop("launches")
+    log(f"paths mesh waves and experts: {time.perf_counter() - t0:.1f} s")
 
     # ---- the families: each model's path zeroes the counts just before it
     # and reads them just after (serve_path)
@@ -2816,6 +3130,7 @@ def main() -> int:
     log(json.dumps({"training": training, "card": card}))
     log(json.dumps({"families": families, "card": card}))
     log(json.dumps({"cluster": cluster}))
+    log(json.dumps({"mesh": mesh, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

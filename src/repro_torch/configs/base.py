@@ -49,7 +49,8 @@ class ModelConfig:
     num_shared_experts: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    moe_impl: str = "gspmd"                 # "gspmd" | "shard_map" (needs a mesh)
+    moe_impl: str = "gspmd"                 # "gspmd" | "shard_map" (expert-parallel
+    #                                         under a use_mesh scope with a "model" axis)
 
     # SSM (Mamba-2)
     ssm_state: int = 0

@@ -1,7 +1,10 @@
 """Core Taskgraph framework: TDG, record-and-replay, schedules, executors,
 wave-fused lowering, cost-model-driven batcher selection, structural
-interning, CUDA-graph replay, TDG serialization and exported (AOT) replay
-programs (port of ``repro.core``; the replay mesh waits, see ROADMAP.md)."""
+interning, CUDA-graph replay, the replay mesh (``mesh=`` on ``lower_tdg``,
+``ReplayExecutor``, ``@taskgraph`` and the AOT path: fused classes' lanes
+split over ``sharding.replay``'s mesh), TDG serialization and exported
+(AOT) replay programs (port of ``repro.core``; ``pipeline.py`` is not
+ported yet)."""
 from .costmodel import (BatcherDecision, BucketTuner, ClassCost, CostModel,
                         adaptive_enabled, default_model, fit_boundaries,
                         plan_key, pow2_boundaries, resolve_batcher)

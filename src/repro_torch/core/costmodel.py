@@ -25,7 +25,7 @@ Two decision engines, as in the reference:
 
 * :class:`BucketTuner` — occupancy buckets for the serving tier, fitted from
   the observed histogram by an exact pad-minimizing DP (``fit_boundaries``).
-  Wiring it into ``RegionServer`` waits for continuous batching.
+  ``RegionServer`` rounds each coalesced batch up to its bucket.
 
 ``REPRO_TORCH_ADAPTIVE=0`` is the kill switch for both: ``"auto"``
 resolves to ``vmap`` and the tuner pins the pow-2 ladder. :func:`plan_key`

@@ -24,6 +24,7 @@ import time
 from typing import Any, Callable, Mapping
 
 from ..kernels import registry as _kreg
+from ..sharding import replay as _shreplay
 from . import costmodel as _costmodel
 from . import lower as _lower
 from . import schedule as _schedule
@@ -134,15 +135,18 @@ class ReplayExecutor:
     (``None`` = the mode in effect at construction). It and the batcher
     plan (``"auto"`` -> the cost model, or ``"vmap"`` under
     ``REPRO_TORCH_ADAPTIVE=0``) are resolved once, here, and key the
-    per-signature cache. Lowering is wave-fused, interned, and captured as a
-    CUDA graph on CUDA buffers (``lower_tdg(jit=True)``).
+    per-signature cache, and so is the replay ``mesh`` (``"auto"``: a
+    ``use_mesh`` scope, then ``REPRO_MESH``), by its fingerprint
+    ``mesh_fp``. Lowering is wave-fused, interned, and captured as a CUDA
+    graph on CUDA buffers (``lower_tdg(jit=True)``).
     """
 
     def __init__(self, tdg: TDG, donate_slots: tuple[str, ...] = (),
                  order: list[int] | None = None,
                  kernel_mode: str | None = None,
                  fuse: bool | str = "auto",
-                 batcher: str = "auto"):
+                 batcher: str = "auto",
+                 mesh: Any = "auto"):
         tdg.validate()
         self.tdg = tdg
         self.donate_slots = tuple(donate_slots)
@@ -151,17 +155,20 @@ class ReplayExecutor:
         self.batcher = batcher
         self.plan_key = _costmodel.plan_key(batcher)
         self.kernel_mode = _kreg.resolved_mode(kernel_mode)
+        self.mesh = _shreplay.resolve_mesh(mesh)
+        self.mesh_fp = _shreplay.mesh_fingerprint(self.mesh)
         self._cache: dict[tuple, Callable] = {}
         self.replays = 0
 
     def _compiled_for(self, buffers: Mapping[str, Any]) -> Callable:
-        sig = (buffers_signature(buffers), self.kernel_mode, self.plan_key)
+        sig = (buffers_signature(buffers), self.kernel_mode, self.mesh_fp, self.plan_key)
         fn = self._cache.get(sig)
         if fn is None:
             with _kreg.kernel_mode_scope(self.kernel_mode):
                 fn = _lower.lower_tdg(self.tdg, order=self.order,
                                       donate_slots=self.donate_slots,
-                                      fuse=self.fuse, batcher=self.batcher)
+                                      fuse=self.fuse, batcher=self.batcher,
+                                      mesh=self.mesh)
             self._cache[sig] = fn
         return fn
 
@@ -180,8 +187,10 @@ class ReplayExecutor:
         with _kreg.kernel_mode_scope(self.kernel_mode):
             aot = _lower.aot_compile_tdg(self.tdg, buffers,
                                          donate_slots=self.donate_slots,
-                                         fuse=self.fuse, batcher=self.batcher)
-        self._cache[(buffers_signature(buffers), self.kernel_mode, self.plan_key)] = aot
+                                         fuse=self.fuse, batcher=self.batcher,
+                                         mesh=self.mesh)
+        self._cache[(buffers_signature(buffers), self.kernel_mode, self.mesh_fp,
+                     self.plan_key)] = aot
         return aot
 
     def run(self, buffers: Mapping[str, Any], block: bool = True) -> dict:

@@ -22,6 +22,11 @@ class whose batched call raises (a payload with no batching rule, say)
 falls back to the unrolled form for that class only, recorded in the
 function's ``last_plan``. Classification runs on every call, from the
 values' shapes, so one lowered function serves every shape.
+
+With a replay ``mesh`` (``sharding.replay``), each ``vmap`` class is padded
+to a multiple of the mesh's batch axis and its stacked lanes are split into
+one contiguous chunk a shard: each shard's ``vmap`` call runs on its
+device and each member's output comes back to the caller's device.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
+from ..sharding import replay as _shreplay
 from . import costmodel as _costmodel
 from . import schedule as _schedule
 from .tdg import TDG, abstract_eval, abstract_leaf, leaf_signature
@@ -62,9 +68,8 @@ class WaveClass:
 
     ``batcher``/``reason``/``flops``/``bytes_accessed`` record how the class
     was (or would be) dispatched and the numbers behind the choice; a
-    "static" reason means a caller-pinned batcher. ``padded`` is always 0
-    here (mesh padding waits for multi-device replay) and is kept so plan
-    summaries match the reference's.
+    "static" reason means a caller-pinned batcher. ``padded`` counts the
+    pad lanes a replay mesh added to the class (0 without one).
     """
 
     wave: int
@@ -269,8 +274,20 @@ def _stack(members: list) -> Any:
     return pytree.tree_map(lambda *xs: torch.stack(xs, STACK_AXIS), *members)
 
 
-def _run_fused_class(tdg: TDG, cls: WaveClass, env: dict, batcher: str) -> None:
-    """Execute one isomorphism class as a single batched call."""
+def _run_fused_class(tdg: TDG, cls: WaveClass, env: dict, batcher: str,
+                     mesh=None) -> int:
+    """Execute one isomorphism class as a single batched call; return #pads.
+
+    With a ``mesh``, the ``vmap`` form pads the class to a multiple of the
+    mesh's batch-axis size (repeating the last member: pad lanes are
+    computed and never read), splits the stacked varying arguments into one
+    contiguous chunk a shard (``shard_leading``), broadcasts the shared
+    ones to each shard's device, and runs each shard's ``vmap`` call on its
+    device; each member's output is its lane of its shard's result, on the
+    caller's device. ``batcher="map"`` runs one lane at a time and ignores
+    the mesh. The split happens outside ``vmap``, so a payload's ops need
+    no rule of their own for it.
+    """
     tasks = [tdg.tasks[t] for t in cls.tids]
     fn = tasks[0].fn
     arity = len(tasks[0].ins)
@@ -284,15 +301,26 @@ def _run_fused_class(tdg: TDG, cls: WaveClass, env: dict, batcher: str) -> None:
         out = fn(*[env[tasks[0].ins[i]] for i in range(arity)])
         for t in tasks:
             _bind_outs(t, out, env)
-        return
+        return 0
 
+    if batcher != "vmap":
+        mesh = None
     shared_args = {i: env[tasks[0].ins[i]] for i in range(arity) if cls.shared[i]}
-    stacked = {i: _stack([env[t.ins[i]] for t in tasks]) for i in varying}
+    members = {i: [env[t.ins[i]] for t in tasks] for i in varying}
+    padded = 0
+    for i in varying:
+        padded = _shreplay.pad_group(members[i], mesh)
+    stacked = {i: _stack(members[i]) for i in varying}
 
     if batcher == "vmap":
         in_axes = tuple(None if cls.shared[i] else STACK_AXIS for i in range(arity))
-        args = [shared_args[i] if cls.shared[i] else stacked[i] for i in range(arity)]
-        out = torch.func.vmap(fn, in_dims=in_axes)(*args)
+        if mesh is None:
+            args = [shared_args[i] if cls.shared[i] else stacked[i] for i in range(arity)]
+            out = torch.func.vmap(fn, in_dims=in_axes)(*args)
+        else:
+            _bind_sharded(tasks, fn, in_axes, shared_args, stacked,
+                          len(tasks) + padded, mesh, env)
+            return padded
     elif batcher == "map":
         lanes = []
         for j in range(len(tasks)):
@@ -315,11 +343,57 @@ def _run_fused_class(tdg: TDG, cls: WaveClass, env: dict, batcher: str) -> None:
                     f"returned {type(out).__name__}")
             for oi, s in enumerate(t.outs):
                 env[s] = pytree.tree_map(take, out[oi])
+    return padded
+
+
+class CrossDeviceCapture(RuntimeError):
+    """A sharded class reached a device other than the one a CUDA graph is
+    being captured on. Raised, never answered by the unrolled form."""
+
+
+def _home_device(tree: Any) -> torch.device:
+    for leaf in pytree.tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
+def _bind_sharded(tasks: list, fn: Callable, in_axes: tuple, shared_args: dict,
+                  stacked: dict, n_lanes: int, mesh, env: dict) -> None:
+    """One ``vmap`` call a batch shard over its chunk of ``stacked`` (a
+    one-lane shard too: a vmap lane, like the whole-batch call's lanes).
+    Each member's outputs are its lane of its shard's result, moved to the
+    home device (the device of the class's first stacked argument)."""
+    home = _home_device(stacked)
+    if (home.type == "cuda" and torch.cuda.is_current_stream_capturing()
+            and any(d != home for d in _shreplay.shard_devices(mesh))):
+        raise CrossDeviceCapture(
+            f"class of {len(tasks)} sharded over {list(map(str, _shreplay.shard_devices(mesh)))}: "
+            f"a CUDA graph captured on {home} holds that device's work alone; "
+            f"lower the region with jit=False")
+    chunks = {i: _shreplay.shard_leading(v, mesh) for i, v in stacked.items()}
+    n_outs = len(tasks[0].outs)
+    for k, (device, start, stop) in enumerate(_shreplay.lane_chunks(n_lanes, mesh)):
+        args = [_shreplay.replicate(shared_args[i], device) if in_axes[i] is None
+                else chunks[i][k] for i in range(len(in_axes))]
+        with _shreplay.on_device(device):
+            out = torch.func.vmap(fn, in_dims=in_axes)(*args)
+        if n_outs > 1 and (not isinstance(out, (tuple, list)) or len(out) != n_outs):
+            raise ValueError(f"task {tasks[0].label()} declared {n_outs} outputs, "
+                             f"returned {type(out).__name__}")
+        for j in range(start, min(stop, len(tasks))):
+            take = lambda x, _j=j - start: x.select(STACK_AXIS, _j).to(home)  # noqa: E731
+            t = tasks[j]
+            if n_outs == 1:
+                env[t.outs[0]] = pytree.tree_map(take, out)
+            else:
+                for oi, s in enumerate(t.outs):
+                    env[s] = pytree.tree_map(take, out[oi])
 
 
 def fused_tdg_as_function(tdg: TDG, outputs: Sequence[str] | None = None,
                           min_class_size: int = 2,
-                          batcher: str = "vmap") -> Callable[[dict], dict]:
+                          batcher: str = "vmap", mesh=None) -> Callable[[dict], dict]:
     """Return ``f(buffers) -> {slot: value}`` with wave-fused task dispatch.
 
     Drop-in for ``lower.tdg_as_function`` (no side effects of its own,
@@ -329,6 +403,11 @@ def fused_tdg_as_function(tdg: TDG, outputs: Sequence[str] | None = None,
     included. ``batcher`` is ``"vmap"`` / ``"map"`` (pinned) or ``"auto"``
     (the cost model per class); the ``REPRO_TORCH_ADAPTIVE`` kill switch is
     read per call.
+
+    ``mesh`` (a ``ReplayMesh`` or ``None``; ``lower.lower_tdg`` resolves
+    ``"auto"``) shards every ``vmap`` class's stacked lanes over the mesh's
+    batch axis (:func:`_run_fused_class`). Classes that fall back to the
+    unrolled form stay on the caller's device.
     """
     waves = _schedule.topo_waves(tdg)
     outputs = list(outputs) if outputs is not None else list(tdg.output_slots)
@@ -353,8 +432,10 @@ def fused_tdg_as_function(tdg: TDG, outputs: Sequence[str] | None = None,
                     applied.append(cls)
                     continue
                 try:
-                    _run_fused_class(tdg, cls, env, cls.batcher)
-                    applied.append(cls)
+                    padded = _run_fused_class(tdg, cls, env, cls.batcher, mesh=mesh)
+                    applied.append(dataclasses.replace(cls, padded=padded))
+                except CrossDeviceCapture:
+                    raise
                 except Exception:
                     # Payload not batchable (no vmap rule, data-dependent
                     # control flow, ...): this class only degrades to the

@@ -12,9 +12,12 @@ per-task orchestration. Three layers, as in the reference:
   implies it.
 * **Structural interning**: lowered callables are shared globally by the
   TDG's canonical structure, its payload identities, its donated slots, the
-  fusion options, the batcher plan and the kernel mode, so structurally
-  identical regions (N tenants of one decode step) share one entry.
-  ``intern_stats()`` exposes the counters.
+  fusion options, the batcher plan, the kernel mode and the replay mesh's
+  fingerprint, so structurally identical regions (N tenants of one decode
+  step) share one entry. ``intern_stats()`` exposes the counters.
+* **Replay mesh** (``mesh=``, ``sharding.replay``): every fused class's
+  stacked lanes split over the mesh's batch axis, one ``vmap`` call a
+  shard on its device (``fuse._run_fused_class``).
 * **CUDA-graph replay** (``jit=True``, the counterpart of ``jax.jit``): on
   CUDA buffers the lowered callable is captured once per buffer signature
   as a ``torch.cuda.CUDAGraph`` over static input buffers, and each call
@@ -44,6 +47,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils import _pytree as pytree
 
 from ..kernels import registry as _kreg
+from ..sharding import replay as _shreplay
 from . import costmodel as _costmodel
 from . import fuse as _fuse
 from . import schedule as _schedule
@@ -88,11 +92,11 @@ def fuse_enabled(fuse: bool | str = "auto") -> bool:
 
 
 def _base_function(tdg: TDG, outputs, fuse: bool, min_class_size: int,
-                   batcher: str) -> Callable[[dict], dict]:
+                   batcher: str, mesh=None) -> Callable[[dict], dict]:
     if fuse:
         return _fuse.fused_tdg_as_function(tdg, outputs=outputs,
                                            min_class_size=min_class_size,
-                                           batcher=batcher)
+                                           batcher=batcher, mesh=mesh)
     return tdg_as_function(tdg, outputs=outputs)
 
 
@@ -232,6 +236,14 @@ class GraphReplay:
     ``_GRAPH_CAP``, least recently used evicted first. :meth:`release`
     drops them all. ``captures`` counts the graphs captured and
     ``capture_seconds`` the host time their warm-ups and captures took.
+
+    **Replay mesh.** A graph holds the work of the device it is captured on:
+    a region whose fused classes are sharded over that device alone
+    (virtual shards on one card) is captured as one graph, and one whose
+    shards reach another device raises :class:`GraphCaptureError` at
+    capture (``fuse._bind_sharded``). A coalesced serving batch under a mesh
+    replays once a shard instead (``serving/server.py``): its graphs are
+    keyed by the shard's device, one a device.
     """
 
     def __init__(self, fn: Callable[[dict], dict], name: str, donate: Sequence[str] = ()):
@@ -431,15 +443,17 @@ def clear_intern_cache() -> None:
 
 def _interned_lower(tdg: TDG, outputs, donate_slots: tuple[str, ...],
                     fuse: bool, min_class_size: int, batcher: str,
-                    jit: bool) -> Callable[[dict], dict]:
+                    jit: bool, mesh=None) -> Callable[[dict], dict]:
     sig, slot_map, payloads = structure_signature(tdg, outputs)
     canon_donate = tuple(sorted(slot_map[s] for s in donate_slots if s in slot_map))
     # The kernel mode keys the cache, and is re-entered around every call,
     # so two callers pinned to different substrates never share an entry;
-    # the batcher's plan key does the same for fusion plans.
+    # the batcher's plan key does the same for fusion plans, and the mesh
+    # fingerprint for sharded and single-device lowerings of one structure.
     mode = _kreg.kernel_mode()
     key = (sig, tuple(id(p) for p in payloads), canon_donate, fuse,
-           min_class_size, _costmodel.plan_key(batcher), mode, jit)
+           min_class_size, _costmodel.plan_key(batcher), mode, jit,
+           _shreplay.mesh_fingerprint(mesh))
 
     with _intern_lock:
         entry = _intern_cache.get(key)
@@ -450,7 +464,7 @@ def _interned_lower(tdg: TDG, outputs, donate_slots: tuple[str, ...],
             _intern_counters["misses"] += 1
     if entry is None:
         actual = list(outputs) if outputs is not None else list(tdg.output_slots)
-        base = _base_function(tdg, actual, fuse, min_class_size, batcher)
+        base = _base_function(tdg, actual, fuse, min_class_size, batcher, mesh)
         from_canon = {c: a for a, c in slot_map.items()}
 
         def canon_run(cbuffers: dict) -> dict:
@@ -492,7 +506,8 @@ def lower_tdg(tdg: TDG, order: Sequence[int] | None = None,
               fuse: bool | str = "auto",
               intern: bool | str = "auto",
               min_class_size: int = 2,
-              batcher: str = "auto") -> Callable[[dict], dict]:
+              batcher: str = "auto",
+              mesh: Any = "auto") -> Callable[[dict], dict]:
     """Lower the TDG to one replay callable.
 
     ``fuse`` selects wave-fused lowering; an explicit ``order`` forces the
@@ -515,9 +530,19 @@ def lower_tdg(tdg: TDG, order: Sequence[int] | None = None,
     the caller gives the donated input up: after the call it holds the
     output. On the CPU, and with ``jit=False``, the region runs as it is and
     the donated input is left alone.
+
+    ``mesh`` shards every fused class's stacked lanes over a replay mesh: a
+    ``ReplayMesh``, ``None`` (single-device) or ``"auto"`` (an ambient
+    ``sharding.partition.use_mesh`` scope, then ``REPRO_MESH``; see
+    ``sharding.replay.resolve_mesh``). Unfused lowering takes none. The
+    resolved mesh's fingerprint keys the intern cache. A donated slot stays
+    the caller's tensor under a mesh: the shards read their chunks of the
+    stacked lanes, and what the region writes to the slot is gathered back
+    into the graph's buffer for it at the end, as without a mesh.
     """
     donate_slots = tuple(donate_slots)
     do_fuse = fuse_enabled(fuse) and order is None
+    mesh = _shreplay.resolve_mesh(mesh) if do_fuse else None
     if intern == "auto":
         intern = jit and order is None
     elif intern and order is not None:
@@ -525,8 +550,8 @@ def lower_tdg(tdg: TDG, order: Sequence[int] | None = None,
                          "(interned callables run in wave order)")
     if intern:
         return _interned_lower(tdg, list(outputs) if outputs is not None else None,
-                               donate_slots, do_fuse, min_class_size, batcher, jit)
-    fn = (_base_function(tdg, outputs, do_fuse, min_class_size, batcher)
+                               donate_slots, do_fuse, min_class_size, batcher, jit, mesh)
+    fn = (_base_function(tdg, outputs, do_fuse, min_class_size, batcher, mesh)
           if order is None else tdg_as_function(tdg, order=order, outputs=outputs))
     return GraphReplay(fn, tdg.region, donate_slots) if jit else fn
 
@@ -600,7 +625,10 @@ class AotExecutable:
     ``donate_slots`` are honoured as in ``lower_tdg``. ``cost_analysis``
     holds ``flops`` (``FlopCounterMode``) and ``bytes accessed`` (inputs and
     outputs); ``trace_seconds`` is the export, ``compile_seconds`` building
-    the program's module.
+    the program's module. ``mesh_fp`` is the fingerprint of the replay mesh
+    the program was exported under (``None``: single-device); it rides the
+    artifact's topology fingerprint, so a consumer on another mesh refuses
+    it.
     """
 
     program: Any
@@ -611,6 +639,7 @@ class AotExecutable:
     trace_seconds: float = 0.0
     compile_seconds: float = 0.0
     device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
+    mesh_fp: str | None = None
 
     def __post_init__(self) -> None:
         self.signature = spec_signature(self.input_specs)
@@ -673,7 +702,8 @@ def aot_compile_tdg(tdg: TDG, buffers: Mapping[str, Any],
                     donate_slots: Sequence[str] = (),
                     fuse: bool | str = "auto",
                     min_class_size: int = 2,
-                    batcher: str = "auto") -> AotExecutable:
+                    batcher: str = "auto",
+                    mesh: Any = "auto") -> AotExecutable:
     """Export the replay program for ``buffers``' specs, here and now.
 
     ``buffers`` hold real tensors on the device the program is for (module
@@ -682,11 +712,13 @@ def aot_compile_tdg(tdg: TDG, buffers: Mapping[str, Any],
     custom ops (``torch.ops.repro_torch.*``), on CPU tensors their plain
     versions, as the wrappers choose by device. Runs under the caller's
     kernel mode, which the program bakes in. ``donate_slots`` are honoured
-    when the program is called, as in ``lower_tdg``.
+    when the program is called, as in ``lower_tdg``; ``mesh`` is resolved
+    and baked in as there, and recorded as ``mesh_fp``.
     """
     do_fuse = fuse_enabled(fuse)
+    mesh = _shreplay.resolve_mesh(mesh) if do_fuse else None
     fn = _base_function(tdg, list(outputs) if outputs is not None else None,
-                        do_fuse, min_class_size, batcher)
+                        do_fuse, min_class_size, batcher, mesh)
     tensors = tensor_tree(dict(buffers))
     specs = spec_of(tensors)
     devices = {t.device for t in pytree.tree_leaves(tensors)}
@@ -714,6 +746,7 @@ def aot_compile_tdg(tdg: TDG, buffers: Mapping[str, Any],
     t1 = time.perf_counter()
     aot = AotExecutable(program=program, input_specs=specs, fused=do_fuse,
                         donate_slots=tuple(k for k in donate_slots if k in specs),
-                        cost_analysis=cost, device=device)
+                        cost_analysis=cost, device=device,
+                        mesh_fp=_shreplay.mesh_fingerprint(mesh))
     aot.trace_seconds, aot.compile_seconds = t1 - t0, time.perf_counter() - t1
     return aot

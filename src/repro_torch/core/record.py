@@ -19,9 +19,10 @@ deterministic, task-free control flow (the paper's conformance rules,
 Regions are registered by source location (file, line, name), as the paper
 keys TDGs (§4.3.3). Unless ``nowait=True``, a call returns after the
 buffers' device has finished (the counterpart of ``block_until_ready``).
-The replay cache is keyed by (buffers signature, kernel mode, batcher plan
-key), so flipping ``REPRO_TORCH_KERNELS`` or ``REPRO_TORCH_ADAPTIVE``
-between replays re-lowers instead of serving a stale callable.
+The replay cache is keyed by (buffers signature, kernel mode, replay-mesh
+fingerprint, batcher plan key), so flipping ``REPRO_TORCH_KERNELS``,
+``REPRO_MESH`` or ``REPRO_TORCH_ADAPTIVE`` between replays re-lowers
+instead of serving a stale callable.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..kernels import registry as _kreg
+from ..sharding import replay as _shreplay
 from . import costmodel as _costmodel
 from . import fuse as _fuse
 from . import lower as _lower
@@ -92,7 +94,8 @@ class TaskGraphRegion:
     def __init__(self, build_fn: Callable, name: str | None = None,
                  nowait: bool = False, donate_slots: tuple[str, ...] = (),
                  recurrent: bool = True, outputs: tuple[str, ...] | None = None,
-                 fuse: bool | str = "auto", batcher: str = "auto"):
+                 fuse: bool | str = "auto", batcher: str = "auto",
+                 mesh: Any = "auto"):
         code = build_fn.__code__
         self.build_fn = build_fn
         self.outputs = tuple(outputs) if outputs is not None else None
@@ -100,6 +103,10 @@ class TaskGraphRegion:
         # Kept unresolved: "auto" re-reads REPRO_TORCH_ADAPTIVE per replay
         # through costmodel.plan_key, which keys the replay cache.
         self.batcher = batcher
+        # Kept unresolved too: a decorator runs at import, and "auto" is
+        # resolved (REPRO_MESH, a use_mesh scope) at each replay and keys
+        # the replay cache by its fingerprint.
+        self.mesh = mesh
         self.name = name or build_fn.__name__
         # paper §4.3.3: TDGs are identified by source location
         self.source_location = (code.co_filename, code.co_firstlineno, self.name)
@@ -152,13 +159,15 @@ class TaskGraphRegion:
         if self.tdg is None:
             raise RuntimeError(f"region {self.name!r} has no TDG yet")
         mode = _kreg.resolved_mode()
-        sig = (buffers_signature(buffers), mode, _costmodel.plan_key(self.batcher))
+        mesh = _shreplay.resolve_mesh(self.mesh)
+        sig = (buffers_signature(buffers), mode, _shreplay.mesh_fingerprint(mesh),
+               _costmodel.plan_key(self.batcher))
         fn = self._replay_cache.get(sig)
         with _kreg.kernel_mode_scope(mode):
             if fn is None:
                 fn = _lower.lower_tdg(self.tdg, donate_slots=self.donate_slots,
                                       outputs=self.outputs, fuse=self.fuse,
-                                      batcher=self.batcher)
+                                      batcher=self.batcher, mesh=mesh)
                 self._replay_cache[sig] = fn
             out = fn(buffers)
         self.replays += 1
@@ -178,11 +187,12 @@ class TaskGraphRegion:
                 f"region {self.name!r} has no TDG yet — call build_static() "
                 "or record once before warming up")
         mode = _kreg.resolved_mode()
+        mesh = _shreplay.resolve_mesh(self.mesh)
         with _kreg.kernel_mode_scope(mode):
             aot = _lower.aot_compile_tdg(self.tdg, buffers, outputs=self.outputs,
                                          donate_slots=self.donate_slots,
-                                         fuse=self.fuse, batcher=self.batcher)
-        self._replay_cache[(buffers_signature(buffers), mode,
+                                         fuse=self.fuse, batcher=self.batcher, mesh=mesh)
+        self._replay_cache[(buffers_signature(buffers), mode, _shreplay.mesh_fingerprint(mesh),
                             _costmodel.plan_key(self.batcher))] = aot
         return aot
 
@@ -223,13 +233,15 @@ class TaskGraphRegion:
 def taskgraph(fn: Callable | None = None, *, name: str | None = None,
               nowait: bool = False, donate_slots: tuple[str, ...] = (),
               recurrent: bool = True, outputs: tuple[str, ...] | None = None,
-              fuse: bool | str = "auto", batcher: str = "auto"):
+              fuse: bool | str = "auto", batcher: str = "auto",
+              mesh: Any = "auto"):
     """Decorator form: ``@taskgraph`` / ``@taskgraph(nowait=True)``."""
 
     def wrap(f: Callable) -> TaskGraphRegion:
         return TaskGraphRegion(f, name=name, nowait=nowait,
                                donate_slots=donate_slots, recurrent=recurrent,
-                               outputs=outputs, fuse=fuse, batcher=batcher)
+                               outputs=outputs, fuse=fuse, batcher=batcher,
+                               mesh=mesh)
 
     if fn is not None:
         return wrap(fn)

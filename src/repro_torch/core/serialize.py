@@ -151,17 +151,27 @@ def local_device(device: Any = None) -> torch.device:
     return torch.device(device)
 
 
-def topology_fingerprint(device: Any = None) -> dict:
+def topology_fingerprint(device: Any = None, mesh: Any = "auto") -> dict:
     """The device-topology identity an exported program is bound to.
 
     ``device`` is where the program runs (``None``: the card when there is
     one, else the CPU). The fingerprint holds the platform (``"gpu"`` or
     ``"cpu"``), the device kind (``torch.cuda.get_device_name``), the visible
     device count, the compute capability (``sm``), the torch and CUDA
-    versions, and the replay mesh (always ``None``: the port has no replay
-    mesh yet). Every value is JSON-stable: the fingerprint crosses the
-    cluster tier's JSON wire.
+    versions, and the replay mesh's fingerprint: a program exported with its
+    lanes split over a mesh must not hydrate where replay runs on another.
+    ``mesh`` follows ``sharding.replay.resolve_mesh`` (``"auto"``: THIS
+    process's scope or ``REPRO_MESH``); a fingerprint string (what a program
+    was exported under, ``AotExecutable.mesh_fp``) or ``None`` is used as it
+    is. Every value is JSON-stable: the fingerprint crosses the cluster
+    tier's JSON wire.
     """
+    from ..sharding import replay as _shreplay
+
+    if mesh is None or isinstance(mesh, str) and mesh != "auto":
+        mesh_fp = mesh
+    else:
+        mesh_fp = _shreplay.mesh_fingerprint(_shreplay.resolve_mesh(mesh))
     device = local_device(device)
     if device.type == "cuda":
         major, minor = torch.cuda.get_device_capability(device)
@@ -172,7 +182,7 @@ def topology_fingerprint(device: Any = None) -> dict:
         platform, kind, count, sm = "cpu", "cpu", 1, None
     return {"platform": platform, "device_kind": kind, "device_count": count,
             "sm": sm, "torch": torch.__version__, "cuda": torch.version.cuda,
-            "mesh": None}
+            "mesh": mesh_fp}
 
 
 def executable_serialization_available() -> bool:
@@ -189,7 +199,8 @@ def executable_to_bytes(aot) -> bytes:
     torch.export.save(aot.program, buf)
     blob = {
         "version": 1,
-        "topology": topology_fingerprint(aot.device),
+        # the mesh the program was exported under, not this process's
+        "topology": topology_fingerprint(aot.device, mesh=aot.mesh_fp),
         "payload": buf.getvalue(),
         "input_specs": aot.input_specs,
         "fused": aot.fused,
@@ -208,13 +219,15 @@ def save_executable(aot, path) -> None:
         f.write(data)
 
 
-def executable_from_bytes(data: bytes, device: Any = None):
+def executable_from_bytes(data: bytes, device: Any = None, mesh: Any = "auto"):
     """Hydrate an ``lower.AotExecutable`` from :func:`executable_to_bytes` output.
 
     ``device`` is where THIS consumer runs the program (``None``: the card
-    when there is one, else the CPU). Raises on corruption or a version
-    mismatch, and :class:`TopologyMismatch` when the embedded topology
-    disagrees with ``device`` here (checked before ``torch.export.load``).
+    when there is one, else the CPU) and ``mesh`` the replay mesh it runs
+    it under (``"auto"``: scope or env; a ``RegionServer`` passes its own
+    ``mesh_fp``). Raises on corruption or a version mismatch, and
+    :class:`TopologyMismatch` when the embedded topology disagrees with
+    ``device`` and ``mesh`` here (checked before ``torch.export.load``).
     The kernels' custom ops are registered first (the program names them).
     Soft-fallback policy belongs to the callers, which count the failure.
     """
@@ -229,7 +242,7 @@ def executable_from_bytes(data: bytes, device: Any = None):
     if shipped is None:
         raise ValueError("artifact carries no topology fingerprint")
     device = local_device(device)
-    here = topology_fingerprint(device)
+    here = topology_fingerprint(device, mesh=mesh)
     if shipped != here:
         raise TopologyMismatch(
             f"artifact was exported for {shipped} but this process runs "
@@ -241,18 +254,18 @@ def executable_from_bytes(data: bytes, device: Any = None):
                                 cost_analysis=blob["cost_analysis"],
                                 trace_seconds=blob.get("trace_seconds", 0.0),
                                 compile_seconds=blob.get("compile_seconds", 0.0),
-                                device=device)
+                                device=device, mesh_fp=shipped.get("mesh"))
 
 
-def load_executable(path, device: Any = None):
+def load_executable(path, device: Any = None, mesh: Any = "auto"):
     """Load a replay program saved by :func:`save_executable`."""
     with open(path, "rb") as f:
         data = f.read()
-    return executable_from_bytes(data, device=device)
+    return executable_from_bytes(data, device=device, mesh=mesh)
 
 
 def warmup_and_save(tdg: TDG, buffers, path, registry: TaskFnRegistry,
-                    fuse: bool | str = "auto") -> dict:
+                    fuse: bool | str = "auto", mesh: Any = "auto") -> dict:
     """Save the TDG JSON *and* export + persist its replay program.
 
     The graph goes to ``path`` (portable, payloads by symbol) and the program
@@ -267,7 +280,7 @@ def warmup_and_save(tdg: TDG, buffers, path, registry: TaskFnRegistry,
         raise RuntimeError("this torch build lacks torch.export.save; "
                            "use save_tdg() for the graph-only artifact")
     save_tdg(tdg, path, registry)
-    aot = _lower.aot_compile_tdg(tdg, buffers, fuse=fuse)
+    aot = _lower.aot_compile_tdg(tdg, buffers, fuse=fuse, mesh=mesh)
     aot_path = str(path) + ".aot"
     save_executable(aot, aot_path)
     return {
@@ -280,19 +293,20 @@ def warmup_and_save(tdg: TDG, buffers, path, registry: TaskFnRegistry,
     }
 
 
-def load_warm(path, registry: TaskFnRegistry, device: Any = None):
+def load_warm(path, registry: TaskFnRegistry, device: Any = None, mesh: Any = "auto"):
     """Load ``(tdg, aot_executable | None)`` saved by :func:`warmup_and_save`.
 
     The program comes back ``None`` when the sidecar is missing or cannot be
-    hydrated here (another topology, a corrupt file): callers fall back to
-    the ordinary lowered replay and count the failure.
+    hydrated here (another topology or replay mesh, a corrupt file): callers
+    fall back to the ordinary lowered replay and count the failure. ``mesh``
+    is the consumer's replay mesh, as in :func:`executable_from_bytes`.
     """
     tdg = load_tdg(path, registry)
     aot_path = str(path) + ".aot"
     aot = None
     if os.path.exists(aot_path) and executable_serialization_available():
         try:
-            aot = load_executable(aot_path, device=device)
+            aot = load_executable(aot_path, device=device, mesh=mesh)
         except Exception:  # another topology, a corrupt file: soft-fail
             aot = None
     return tdg, aot

@@ -423,7 +423,8 @@ class WorkerNode:
             rpc.server_handshake(
                 conn, token=self.token, timeout=self.handshake_timeout,
                 info={"pid": os.getpid(), "port": self.port,
-                      "topology": _serialize.topology_fingerprint(self.device)})
+                      "topology": _serialize.topology_fingerprint(
+                          self.device, mesh=self.server.mesh_fp)})
             conn.sock.settimeout(None)      # deadline left a timeout armed
         except (rpc.ProtocolError, rpc.ConnectionClosed, OSError):
             # Wrong token / protocol skew / handshake timeout / port
@@ -603,8 +604,12 @@ class WorkerNode:
             try:
                 aot = self._programs.get(digest)
                 if aot is None:
+                    # Matched against THIS worker's server's replay mesh,
+                    # not the ambient one: a program exported with its
+                    # lanes split over a mesh is refused (TopologyMismatch)
+                    # by a server that replays single-device, and vice versa.
                     aot = self._programs[digest] = _serialize.executable_from_bytes(
-                        artifact, device=self.device)
+                        artifact, device=self.device, mesh=self.server.mesh_fp)
             except _serialize.TopologyMismatch as exc:
                 # Exported for other hardware or another torch/CUDA version:
                 # caught by the fingerprint BEFORE torch.export.load runs.
@@ -670,7 +675,8 @@ class WorkerNode:
         s["worker"] = {"pid": os.getpid(), "port": self.port,
                        "hydrated_inband": self.hydrated_inband,
                        "device": str(self.device),
-                       "topology": _serialize.topology_fingerprint(self.device),
+                       "topology": _serialize.topology_fingerprint(
+                           self.device, mesh=self.server.mesh_fp),
                        "transport": self.transport,
                        "pin_groups": len(self._pin_groups),
                        "pinned_tenants": sorted(self._tenant_pin)}
@@ -894,8 +900,14 @@ class _WorkerHandle:
                     "the frontend"))
             if not live:
                 continue
+            # Counted before the send, with the window slot it takes: the
+            # peer may answer the frame (and its futures resolve) before
+            # ``send`` returns here, and ``dispatch_stats`` must already
+            # include it then. A failed send undoes the count.
             with self._q_cv:
                 self._inflight_frames += 1
+                self.frames_sent += 1
+                self.entries_sent += len(live)
             # The ttl is recomputed at PACK time (not submit time), so
             # frontend queue wait is charged against the budget; relative
             # seconds because monotonic clocks do not compare across hosts.
@@ -907,11 +919,11 @@ class _WorkerHandle:
             try:
                 self.conn.send(frame, codec="binary")
             except (OSError, rpc.ProtocolError):
+                with self._q_cv:
+                    self.frames_sent -= 1
+                    self.entries_sent -= len(live)
                 self._mark_dead()
                 return
-            with self._lock:
-                self.frames_sent += 1
-                self.entries_sent += len(live)
 
     # -------------------------------------------------------------- control
     def request_async(self, msg: dict) -> Future:
@@ -1112,8 +1124,8 @@ class _WorkerHandle:
         with self._q_cv:
             queued = len(self._submit_q)
             inflight = self._inflight_frames
-        with self._lock:
             frames, entries = self.frames_sent, self.entries_sent
+        with self._lock:
             timeouts = self.timeouts
         return {"frames_sent": frames, "entries_sent": entries,
                 "entries_per_frame": (round(entries / frames, 3)

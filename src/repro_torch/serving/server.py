@@ -58,10 +58,18 @@ execution, as in the reference:
   request whose buffers match the program's specs is served by it
   (``aot_served``); a sidecar that cannot be hydrated is counted
   (``aot_hydrate_failures``) and the tenant is lowered instead.
+* **Replay mesh** (``mesh=``, resolved once at construction: a
+  ``ReplayMesh``, ``None``, or ``"auto"`` = a ``use_mesh`` scope, then
+  ``REPRO_MESH``). A coalesced batch's bucket rounds up to a multiple of
+  the mesh's batch axis, and its request axis splits into one contiguous
+  chunk a shard: each shard runs the unsharded batched step over its
+  requests on its device (one graph a shard device), and the outputs come
+  back to the caller's device. Single requests lower their region under
+  the mesh (``lower_tdg(mesh=...)``). The mesh's fingerprint keys the
+  pool's batched and AOT entries and is checked against a warm artifact's
+  (``stats()["mesh"]``).
 * **Metrics**: queue depth, occupancy, pool hit rate, p50/p99 latency
   overall and per tier, and a per-step trace ring (:meth:`dump_trace`).
-
-The replay mesh waits (ROADMAP.md, queue A item 13).
 """
 from __future__ import annotations
 
@@ -81,6 +89,7 @@ from ..core import lower as _lower
 from ..core import serialize as _serialize
 from ..core.tdg import TDG, buffers_signature, structure_signature
 from ..kernels import registry as _kreg
+from ..sharding import replay as _shreplay
 from .metrics import ServerMetrics
 from .pool import PoolEntry, WarmPool
 from .qos import (SmoothWRR, TokenBucket, tenant_rate_default, tenant_tier_default,
@@ -142,6 +151,8 @@ class Tenant:
     warm_path: str | None = None
     fuse: bool | str = "auto"
     capture: bool = True
+    #: The server's resolved replay mesh (or None), pinned at registration.
+    mesh: Any = None
     aot_key: tuple | None = None
     requests: int = 0
     tier: int = 0
@@ -165,6 +176,7 @@ class Tenant:
                 with _kreg.kernel_mode_scope(self.kernel_mode):
                     self._fn = _lower.lower_tdg(
                         self.tdg, jit=self.capture, intern=True, fuse=self.fuse,
+                        mesh=self.mesh,
                         outputs=list(self.outputs) if self.outputs is not None else None)
             return self._fn
 
@@ -247,7 +259,8 @@ class RegionServer:
                  continuous: bool | None = None,
                  adaptive: bool | str = "auto",
                  capture: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Any = "auto"):
         self.name = name
         self.device = _serialize.local_device(device)
         self.max_batch = max(1, int(max_batch))
@@ -259,6 +272,11 @@ class RegionServer:
         self.capture = bool(capture)
         self.adaptive = _costmodel.adaptive_enabled(adaptive)
         self.buckets = _costmodel.BucketTuner(self.max_batch, adaptive=self.adaptive)
+        # Resolved once: every lowering this server makes (single request,
+        # batched, warmup export) runs under it, and its fingerprint keys
+        # the pool so single-device and N-device entries never collide.
+        self.mesh = _shreplay.resolve_mesh(mesh)
+        self.mesh_fp = _shreplay.mesh_fingerprint(self.mesh)
         self.pool = WarmPool(capacity=pool_capacity)
         self.metrics = ServerMetrics()
         self._tenants: dict[str, Tenant] = {}
@@ -342,7 +360,8 @@ class RegionServer:
             if fn_registry is None:
                 raise ValueError("warm_path= requires fn_registry= to re-link task payloads")
             sidecar_present = os.path.exists(str(warm_path) + ".aot")
-            tdg, loaded = _serialize.load_warm(warm_path, fn_registry, device=self.device)
+            tdg, loaded = _serialize.load_warm(warm_path, fn_registry, device=self.device,
+                                               mesh=self.mesh_fp)
             aot = aot or loaded
         tdg.validate()
         mode = (_kreg.kernel_mode() if kernel_mode is None
@@ -353,7 +372,7 @@ class RegionServer:
                         outputs=tuple(outputs) if outputs is not None else None,
                         kernel_mode=mode, sig=sig, slot_map=slot_map,
                         payloads=payloads, warm_path=warm_path, fuse=self.fuse,
-                        capture=self.capture,
+                        capture=self.capture, mesh=self.mesh,
                         tier=tenant_tier_default(name) if tier is None else max(0, int(tier)),
                         rate=(tenant_rate_default(name) if rate is None
                               else max(0.0, float(rate))))
@@ -385,7 +404,7 @@ class RegionServer:
         tenant = self.tenant(name)
         with _kreg.kernel_mode_scope(tenant.kernel_mode):
             aot = _lower.aot_compile_tdg(
-                tenant.tdg, buffers, fuse=tenant.fuse,
+                tenant.tdg, buffers, fuse=tenant.fuse, mesh=tenant.mesh,
                 outputs=list(tenant.outputs) if tenant.outputs is not None else None)
         self._install_aot(tenant, aot)
         return {"tenant": name, "fused": aot.fused, "cost_analysis": aot.cost_analysis,
@@ -400,7 +419,7 @@ class RegionServer:
 
     def _install_aot(self, tenant: Tenant, aot: "_lower.AotExecutable",
                      hydrated: bool = False) -> None:
-        key = ("aot", tenant.name, aot.signature, tenant.kernel_mode)
+        key = ("aot", tenant.name, aot.signature, tenant.kernel_mode, self.mesh_fp)
         self.pool.put(key, PoolEntry("aot", aot, tenant.payloads), hydrated=hydrated)
         tenant.aot_key = key
 
@@ -419,7 +438,7 @@ class RegionServer:
         if tenant.warm_path is not None:
             try:
                 aot = _serialize.load_executable(str(tenant.warm_path) + ".aot",
-                                                 device=self.device)
+                                                 device=self.device, mesh=self.mesh_fp)
             except Exception:
                 tenant.aot_key = None       # unrecoverable: stop retrying
                 self.metrics.on_aot_hydrate_failure()
@@ -650,6 +669,7 @@ class RegionServer:
             "queue_bound": self.queue_bound,
             "continuous": self.continuous,
             "adaptive": self.adaptive,
+            "mesh": self.mesh_fp,
             "tenants": tenants,
             "metrics": self.metrics.snapshot(),
             "pool": self.pool.stats(),
@@ -984,7 +1004,8 @@ class RegionServer:
             canon_out = {tenant0.slot_map[s]: v for s, v in out0.items()}
             return [{r.tenant.from_canon[c]: v for c, v in canon_out.items()}
                     for r in group]
-        key = ("batched", tenant0.sig, tenant0.payload_ids, shared, tenant0.kernel_mode)
+        key = ("batched", tenant0.sig, tenant0.payload_ids, shared, tenant0.kernel_mode,
+               self.mesh_fp)
         entry = self.pool.get(key)
         if entry is None:
             entry = self.pool.put(key, PoolEntry(
@@ -993,7 +1014,8 @@ class RegionServer:
         # last member (dropped after the call): without buckets every
         # occupancy would capture a graph of its own. A refit retires the
         # pool's batched entries (and their graphs): their bucket sizes can
-        # never be asked for again.
+        # never be asked for again. Under a mesh the bucket is also a
+        # batch-axis multiple, so the request axis splits evenly.
         per_req = [{s: cb[s] for s in varying} for cb in canon]
         if self.buckets.observe(len(per_req)):
             self.pool.invalidate(lambda k, e: e.kind == "batched")
@@ -1007,8 +1029,10 @@ class RegionServer:
                 for r, out_j in zip(group, outs)]
 
     def _bucket_and_pad(self, occupancy: int) -> tuple[int, int]:
-        """(bucket, pad lanes) for ``occupancy`` under the current ladder."""
+        """(bucket, pad lanes) for ``occupancy`` under the current ladder,
+        rounded up to a multiple of the replay mesh's batch axis."""
         bucket = self.buckets.bucket_for(occupancy)
+        bucket += (-bucket) % _shreplay.batch_axis_size(self.mesh)
         return bucket, bucket - occupancy
 
     def _build_batched(self, tenant: Tenant) -> Callable[[dict], tuple]:
@@ -1020,9 +1044,18 @@ class RegionServer:
         and slices the outputs per member, all inside one ``GraphReplay``
         (the reference's ``jax.jit(batched)``): one graph per bucket and
         shared-buffer identity, the params module read in place.
+
+        Under a replay mesh the request axis is split into one contiguous
+        chunk a batch shard before it is stacked: each shard runs that same
+        batched step over its chunk on its device (the shared buffers
+        placed there; never copied on their own device), so a shard's graph
+        is the unsharded graph of its occupancy, keyed by its device, and
+        the members' outputs come back to the caller's device. The inner
+        region stays single-device (``mesh=None``), as in the reference:
+        its lanes are the request axis already split here.
         """
         base = _lower.lower_tdg(tenant.tdg, jit=False, intern=False, fuse=self.fuse,
-                                outputs=list(tenant.outputs)
+                                mesh=None, outputs=list(tenant.outputs)
                                 if tenant.outputs is not None else None)
         from_canon, slot_map = tenant.from_canon, tenant.slot_map
 
@@ -1038,9 +1071,26 @@ class RegionServer:
                          for j in range(len(per_req)))
 
         batched.__name__ = f"tdg_batched_{tenant.tdg.region}"
-        if not self.capture:
-            return batched
-        replay = _lower.GraphReplay(batched, batched.__name__)
-        with self._cv:
-            self._batched_replays.append(replay)
-        return replay
+        step = batched
+        if self.capture:
+            step = _lower.GraphReplay(batched, batched.__name__)
+            with self._cv:
+                self._batched_replays.append(step)
+        mesh = self.mesh
+        if mesh is None:
+            return step
+
+        def sharded(args: dict) -> tuple:
+            per_req, shared_bufs = args["per_req"], args["shared"]
+            home = next(l.device for l in pytree.tree_leaves(per_req)
+                        if isinstance(l, torch.Tensor))
+            outs: list = []
+            for device, start, stop in _shreplay.lane_chunks(len(per_req), mesh):
+                chunk = {"per_req": _shreplay.replicate(per_req[start:stop], device),
+                         "shared": _shreplay.replicate(shared_bufs, device)}
+                with _shreplay.on_device(device):
+                    outs.extend(_shreplay.replicate(step(chunk), home))
+            return tuple(outs)
+
+        sharded.__name__ = f"{batched.__name__}_sharded"
+        return sharded

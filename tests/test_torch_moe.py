@@ -6,7 +6,10 @@ in f32, with the JAX parameters carried across by ``params_from_jax``.
 tokens, prefill logits and caches and three decode steps within atol =
 rtol = 1e-4 (the two frameworks sum f32 products in different orders), and
 greedy tokens must be identical. The decode step must vmap across requests
-and coalesce in the ``RegionServer`` with no fallback.
+and coalesce in the ``RegionServer`` with no fallback. Expert-parallel
+``moe_apply_shard_map`` on CPU (data, model) meshes is held to the
+reference's ``moe_apply_gspmd`` at the reference's own tolerance for that
+check (atol 2e-4, rtol 2e-3, ``tests/test_distributed.py``).
 """
 import dataclasses
 
@@ -25,10 +28,12 @@ from repro.models import model as JM  # noqa: E402
 from repro.models import moe as JMoE  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import TDG, clear_intern_cache  # noqa: E402
+from repro_torch.launch.mesh import make_replay_mesh, make_small_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.serving import RegionServer  # noqa: E402
+from repro_torch.sharding import partition as P_  # noqa: E402
 from repro_torch.training import make_serve_step  # noqa: E402
 
 ARCH = "qwen3-moe-30b-a3b"
@@ -113,6 +118,65 @@ def test_moe_apply_bf16_matches_reference(pair):
                                torch.from_numpy(x).to(torch.bfloat16))
     assert got.dtype == torch.bfloat16
     _close(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 2), (2, 1), (1, 4)])
+def test_moe_shard_map_matches_reference(pair, mesh_shape):
+    """The reference's own check (``test_moe_shard_map_equals_gspmd``):
+    x (4, 8, d) through ``moe_impl="shard_map"`` on a (data, model) mesh
+    against JAX's ``moe_apply_gspmd`` at atol 2e-4, rtol 2e-3, and, top-2
+    without drops (capacity factor 4), bit for bit against the port's own
+    unsharded path: each (token, k) lands on one model shard, and the shard
+    partials add in shard order. ``aux`` is the mean over the data shards of
+    each shard's own loss (the reference's ``pmean``)."""
+    jcfg, jparams, cfg, params = pair
+    n_data, n_model = mesh_shape
+    x = np.random.default_rng(3).standard_normal((4, 8, cfg.d_model)).astype(np.float32)
+    jp = _layer(jparams, 0, "moe")
+    want, _ = JMoE.moe_apply_gspmd(jp, jcfg, jnp.asarray(x))
+    layer, xt = params.layers[0].moe, torch.from_numpy(x)
+    sm = dataclasses.replace(cfg, moe_impl="shard_map")
+    with torch.no_grad(), P_.use_mesh(make_small_mesh(n_data, n_model, device="cpu")):
+        got, aux = moe.moe_apply(layer, sm, xt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-3)
+    with torch.no_grad():
+        plain, _ = moe.moe_apply(layer, cfg, xt)
+    assert cfg.top_k == 2 and torch.equal(got, plain)
+    Bl = 4 // n_data
+    want_aux = np.mean([float(JMoE.moe_apply_gspmd(jp, jcfg, jnp.asarray(x[i * Bl:(i + 1) * Bl]))[1])
+                        for i in range(n_data)])
+    np.testing.assert_allclose(float(aux), want_aux, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("capacity_factor", [1.0, 0.5])
+def test_moe_shard_map_with_drops_matches_per_shard_reference(pair, capacity_factor):
+    """With drops, capacity comes from each data shard's own tokens, so the
+    expert-parallel layer equals the reference's global dispatch run on
+    each data shard alone (same routing, same capacity, same drop order)."""
+    jcfg, jparams, cfg, params = pair
+    jcfg = dataclasses.replace(jcfg, capacity_factor=capacity_factor)
+    sm = dataclasses.replace(cfg, capacity_factor=capacity_factor, moe_impl="shard_map")
+    x = np.random.default_rng(4).standard_normal((4, 12, cfg.d_model)).astype(np.float32)
+    jp = _layer(jparams, 1, "moe")
+    want = np.concatenate([np.asarray(JMoE.moe_apply_gspmd(jp, jcfg, jnp.asarray(x[i:i + 2]))[0])
+                           for i in (0, 2)])
+    with torch.no_grad(), P_.use_mesh(make_small_mesh(2, 2, device="cpu")):
+        got, _ = moe.moe_apply(params.layers[1].moe, sm, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-3)
+
+
+def test_shard_map_needs_a_model_axis(pair):
+    """Without an active mesh holding "model", ``moe_impl="shard_map"``
+    takes the global dispatch, as the reference's ``moe_apply`` does."""
+    _, _, cfg, params = pair
+    sm = dataclasses.replace(cfg, moe_impl="shard_map")
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 4, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        want, _ = moe.moe_apply_gspmd(params.layers[0].moe, cfg, x)
+        with P_.use_mesh(make_replay_mesh(2, device="cpu")):
+            got, _ = moe.moe_apply(params.layers[0].moe, sm, x)
+    assert torch.equal(got, want)
 
 
 def test_router_keeps_top_k_order(pair):

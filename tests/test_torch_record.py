@@ -95,7 +95,8 @@ def test_replay_cache_keyed_by_batcher_plan(monkeypatch):
     region(**_inputs()[0])
     monkeypatch.setenv("REPRO_TORCH_ADAPTIVE", "0")
     region(**_inputs()[0])
-    assert sorted(key[2].split("/")[0] for key in region._replay_cache) == ["auto", "vmap"]
+    assert sorted(key[3].split("/")[0] for key in region._replay_cache) == ["auto", "vmap"]
+    assert {key[2] for key in region._replay_cache} == {None}      # the mesh fingerprint
 
 
 def test_static_build_on_meta_matches_recorded():

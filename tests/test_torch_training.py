@@ -11,6 +11,7 @@ the training entry points; the per-layer region's tests are in
 ``test_torch_train_region.py``.
 """
 import dataclasses
+import zlib
 
 import pytest
 
@@ -22,6 +23,7 @@ import numpy as np  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
 from repro.training import make_train_step as jax_train_step  # noqa: E402
@@ -34,6 +36,18 @@ from repro_torch.training import make_train_step  # noqa: E402
 TOL = 1e-4
 P_ATOL, P_RTOL = 1e-3, 5e-3
 KEY = jax.random.PRNGKey(0)
+
+
+@pytest.fixture(autouse=True)
+def _init_independent_of_the_process(monkeypatch):
+    """The reference folds Python's ``hash`` of each parameter's name into
+    its init key (``repro.models.layers.key_for``). ``hash`` of a string is
+    salted per process (``PYTHONHASHSEED``), so ``JM.init_params(cfg, KEY)``
+    drew other weights in every test process, and a draw whose MoE router
+    margin fell within the two frameworks' last-bit noise flipped an expert
+    choice on one side (ROADMAP C1). Here the name is hashed with CRC-32,
+    so KEY alone fixes the weights, in every process."""
+    monkeypatch.setattr(JL, "hash", lambda s: zlib.crc32(str(s).encode()), raising=False)
 
 
 def _pair(arch, **kw):

@@ -239,6 +239,42 @@ Phases, each of which raises on failure (the script then exits non-zero):
       and the step-20 checkpoint restored must equal the live state.
    At most 8 GiB may stay reserved after the phase.
 
+7. Distributed (``run_distributed``), each drive's launch counts set to 0
+   just before its main path and read just after ("pipeline", "mesh
+   train"); every mesh is virtual (repeated positions of this card):
+   a. pipeline: qwen2.5-3b at full width, its 36 blocks stacked into 4
+      stages of 9 on ``ReplayMesh((4,), ("stage",), [cuda:0] * 4)``, 8
+      microbatches of 1 x 512 tokens, f32 params, bf16 compute, remat; the
+      embedding and the head (final norm, tied unembedding, CE) outside
+      the pipeline. ``pipeline_apply``'s forward must be bitwise the stack
+      applied microbatch by microbatch and within relative L2 2e-2 of the
+      whole batch a stage; the loss and grad norm of its forward and
+      backward within 2e-2 of the sequential run and of the same pipeline
+      on the plain versions; 11 waves (``pipeline_waves(4, 8)``); the
+      RMSNorm and flash-attention launches equal to the counts the code
+      predicts (2 and 1 a block, again in each remat recompute, plus the
+      final norm).
+   b. training under a virtual 2 x 2 (data, model) mesh: qwen2.5-3b at
+      full width and depth, batch 4 x 512 of SyntheticLM, 3 steps of
+      ``make_train_step(mesh=...)``; step 1's loss and grad norm within
+      2e-2 of the unsharded step and bitwise equal to the step written out
+      chunk by chunk (params and moments too); step ms and peak memory
+      beside the unsharded step's; launches as predicted; FlopCounterMode
+      of one mesh step on the plain versions for (d).
+   c. elastic: the same setup at 2 of 36 layers (its checkpoint of params
+      and moments; all 36 layers' take 37 GB, some 100 s each way through
+      the Checkpointer's npz and CRC-32): 3 steps on the 2 x 2 mesh with a
+      checkpoint after step 2, restored as host arrays,
+      ``reshard_checkpoint`` onto a virtual (1, 2) mesh, gathered whole and
+      step 3 taken again: its loss within 2e-2 of the uninterrupted one.
+   d. the dry-run, in a child process started before phase 5 (``meta``
+      tensors only): (b)'s own cell on a 2 x 2 meta mesh must count the
+      FLOPs FlopCounterMode counted in (b)'s plain step and place (b)'s
+      bytes at each position; its roofline seconds beside (b)'s step;
+      then qwen2.5-3b train_4k on the 16 x 16 meta production mesh, its
+      record and wall time.
+   At most 8 GiB may stay reserved after the phase.
+
 In the ``{"kernels": [...]}`` line, ``launches_by_path`` holds each path's
 counts and ``decode_round_replay_launches`` the launches of the kernel's
 symbol in the profiled decode round's trace (graph replays, which the
@@ -248,7 +284,8 @@ The last lines are one ``{"kernels": [...]}`` JSON object (with each op's
 backward rule: ``backward_ms``, ``backward_bound_ms``, ...), one
 ``{"taskgraph": [...]}`` object, one ``{"training": {...}}`` object, one
 ``{"families": {...}}`` object, one ``{"cluster": {...}}`` object, one
-``{"mesh": {...}}`` object and then ``{"ok": true, "device": {...}}``.
+``{"mesh": {...}}`` object, one ``{"distributed": {...}}`` object and then
+``{"ok": true, "device": {...}}``.
 Needs a CUDA card and the repository beside this file.
 """
 from __future__ import annotations
@@ -3005,6 +3042,511 @@ def _cluster_served(out: dict, cfg, registry, decode, pinned, states, fixed_in_p
                                                   states[0], ship=False)}
 
 
+# ---------------------------------------------------------------- distributed
+
+PIPE_STAGES, PIPE_MICRO = 4, 8      # qwen2.5-3b's 36 blocks as 4 stages of 9
+DIST_REL = 2e-2                     # bf16 compute: the training phase's FUSED_REL
+MESH_TRAIN_STEPS = 3
+# The elastic run checkpoints the mesh drive's setup at this depth: the
+# Checkpointer writes npz with a CRC-32 a leaf (~0.75 GB/s on one host
+# core), and all 36 layers' params and moments take 37 GB.
+ELASTIC_LAYERS = 2
+DRYRUN_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import ShapeConfig
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import ReplayMesh
+out = {}
+t0 = time.perf_counter()
+mesh = ReplayMesh((2, 2), ("data", "model"), ["meta"] * 4)
+out["mesh_train"] = D.lower_cell("qwen2.5-3b", ShapeConfig("mesh_train", 512, 4, "train"),
+                                 mesh=mesh, opts={"loss_chunk": "0"}, save=False)
+out["mesh_train"]["wall_s"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+out["train_4k"] = D.lower_cell("qwen2.5-3b", "train_4k", save=False)
+out["train_4k"]["wall_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def start_dryrun() -> subprocess.Popen:
+    """Start drive (d)'s dry-runs in a child process: they run on ``meta``
+    tensors (no card; one host core, a few minutes of fake-tensor ops for
+    the 16 x 16 cell) beside the card's drives; ``run_distributed``
+    collects them."""
+    return subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, str(SRC)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _bits(tree: dict) -> torch.Tensor:
+    """Each f32 leaf's bit patterns summed in int64 (bitwise-equal trees
+    give equal sums)."""
+    return torch.stack([t.detach().contiguous().view(torch.int32).sum(dtype=torch.int64)
+                        for t in tree.values()])
+
+
+def _grad_norm(grads) -> float:
+    from repro_torch.optim.adamw import global_norm
+
+    return global_norm(list(grads)).item()
+
+
+def _stage_fn(cfg, per: int):
+    """``stage_fn(params, x)``: ``per`` decoder blocks (the stage's
+    ``layers.j.*`` leaves) over x (mb, S, d), remat as the config says."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    def stage_fn(p, x):
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None].expand(x.shape[0], -1)
+        y, _, _ = T.decoder_stack([M.bind(cfg, p, layer=j) for j in range(per)], cfg, x,
+                                  positions)
+        return y
+    return stage_fn
+
+
+def _apply_stages(stage_fn, stacked: dict, x, n_stages: int):
+    for s in range(n_stages):
+        x = stage_fn({k: v[s] for k, v in stacked.items()}, x)
+    return x
+
+
+def _head_loss(cfg, table, final_norm: dict, h, tokens) -> torch.Tensor:
+    """The model's cross-entropy of final hidden states ``h`` (B, S, d):
+    the final norm, the tied unembedding, CE over the shifted labels."""
+    import types
+
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    hn = T.norm(cfg, types.SimpleNamespace(**final_norm), h)
+    head = types.SimpleNamespace(embed=types.SimpleNamespace(table=table), head=None)
+    tot, cnt = M._ce_chunk(head, cfg, hn, *M.loss_labels({"tokens": tokens}))
+    return tot / cnt
+
+
+def run_pipeline(kernels: dict, registry, card: str) -> dict:
+    """(a) qwen2.5-3b at full width, its 36 blocks stacked into 4 stages of
+    9 on 4 virtual positions of this card, 8 microbatches of 1 x 512
+    tokens, f32 params, bf16 compute; the embedding and the head (final
+    norm, tied unembedding, CE) outside the pipeline. Counts are zeroed
+    just before the pipeline's runs (a forward, then a forward and
+    backward) and read just after; the comparisons come after them."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline_tdg, topo_waves
+    from repro_torch.core.pipeline import bubble_fraction, pipeline_apply, pipeline_waves
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen2.5-3b")
+    S, Mb, per = PIPE_STAGES, PIPE_MICRO, cfg.num_layers // PIPE_STAGES
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.params_of(init_model(cfg))
+    stacked = {}
+    for j in range(per):
+        for name in [n for n in params if n.startswith(f"layers.{j}.")]:
+            leaf = name[len(f"layers.{j}."):]
+            stacked[name] = torch.stack([params[f"layers.{s * per + j}.{leaf}"]
+                                         for s in range(S)]).requires_grad_()
+    params = {k: v for k, v in params.items() if not k.startswith("layers.")}
+    _free()
+    table = params["embed.table"]
+    final_norm = {k.split(".")[-1]: v for k, v in params.items() if k.startswith("final_norm.")}
+    tokens = torch.cat([_train_data(cfg.vocab_size, i)["tokens"] for i in range(2)])  # (8, 512)
+    with torch.no_grad():
+        xs = (L.embed(types.SimpleNamespace(table=table), tokens, cfg.compute_dtype)
+              * cfg.embed_scale)[:, None]                                 # (8, 1, 512, d)
+    mesh = _virtual_mesh((S,), ("stage",))
+    stage_fn = _stage_fn(cfg, per)
+    leaves = list(stacked.values())
+
+    def pipeline_loss():
+        out = pipeline_apply(stage_fn, stacked, xs, mesh)
+        return _head_loss(cfg, table, final_norm, out[:, 0], tokens)
+
+    def sequential_loss():      # the stack without the pipeline: a stage over the whole batch
+        return _head_loss(cfg, table, final_norm, _apply_stages(stage_fn, stacked, xs[:, 0], S),
+                          tokens)
+
+    def grads_of(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fn()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.detach(), grads, (time.perf_counter() - t0) * 1e3
+
+    # ---- the pipeline's runs: counts zeroed just before, read just after
+    for mod in kernels.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = pipeline_apply(stage_fn, stacked, xs, mesh)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    loss, grads, pipe_ms = grads_of(pipeline_loss)
+    launches = read_counts(kernels)
+    # ---- end of the pipeline's runs
+    gnorm = _grad_norm(grads)
+    del grads
+    blocks = cfg.num_layers * Mb
+    remat = 2 if cfg.remat != "none" else 1      # a remat block runs again in the backward
+    predicted = {"rmsnorm_sm90": 2 * blocks + 2 * blocks * remat + 1,   # + the final norm
+                 "flash_attention_sm90": blocks + blocks * remat}
+
+    with torch.no_grad():
+        by_micro = torch.stack([_apply_stages(stage_fn, stacked, xs[m], S) for m in range(Mb)])
+        whole = _apply_stages(stage_fn, stacked, xs[:, 0], S)[:, None]
+    if not torch.equal(out, by_micro):
+        raise AssertionError("the pipeline's forward differs from the stack applied "
+                             "microbatch by microbatch")
+    gaps = {"forward vs whole batch (rel L2)": rel_l2(out, whole)}
+    del by_micro, whole
+    seq_loss, seq_grads, seq_ms = grads_of(sequential_loss)
+    seq_gnorm = _grad_norm(seq_grads)
+    del seq_grads
+    with registry.kernel_mode_scope("ref"):
+        ref_loss, ref_grads, ref_ms = grads_of(pipeline_loss)
+    ref_gnorm = _grad_norm(ref_grads)
+    del ref_grads
+    gaps.update({
+        "loss vs sequential": abs(loss.item() - seq_loss.item()) / abs(seq_loss.item()),
+        "grad norm vs sequential": abs(gnorm - seq_gnorm) / seq_gnorm,
+        "loss vs plain pipeline": abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()),
+        "grad norm vs plain pipeline": abs(gnorm - ref_gnorm) / ref_gnorm})
+    waves = len(topo_waves(pipeline_tdg(S, Mb, include_backward=False)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"pipeline qwen2.5-3b ({cfg.num_layers} blocks as {S} stages of {per} on {S} virtual "
+        f"positions of this card, {Mb} microbatches of 1 x {TRAIN_SEQ}, remat {cfg.remat}, "
+        f"f32 params, bf16 compute): {waves} waves (pipeline_waves {pipeline_waves(S, Mb)}), "
+        f"bubble fraction {bubble_fraction(S, Mb):.4f}; forward {fwd_ms:.1f} ms; forward + "
+        f"backward: pipeline {pipe_ms:.1f} ms, sequential (a stage over the whole batch) "
+        f"{seq_ms:.1f} ms, the pipeline on the plain versions {ref_ms:.1f} ms; loss "
+        f"{loss.item():.6f} (sequential {seq_loss.item():.6f}, plain {ref_loss.item():.6f}), "
+        f"grad norm {gnorm:.6f} (sequential {seq_gnorm:.6f}, plain {ref_gnorm:.6f}); forward "
+        f"bitwise equal to the stack microbatch by microbatch; gaps {gaps} (limit {DIST_REL}); "
+        f"launches {launches}, predicted {predicted}; peak {peak:.2f} GiB ({card})")
+    if waves != pipeline_waves(S, Mb) or waves != Mb + S - 1:
+        raise AssertionError(f"pipeline waves {waves}, pipeline_waves {pipeline_waves(S, Mb)}")
+    if max(gaps.values()) > DIST_REL:
+        raise AssertionError(f"pipeline gaps beyond {DIST_REL}: {gaps}")
+    if {k: launches[k] for k in predicted} != predicted:
+        raise AssertionError(f"pipeline launches {launches}, predicted {predicted}")
+    if any(launches[k] for k in FIRST_DESIGNS):
+        raise AssertionError(f"a first design launched on the pipeline path: {launches}")
+    del stacked, leaves, params, xs, out, table, final_norm
+    _free()
+    return {"stages": S, "microbatches": Mb, "waves": waves,
+            "bubble_fraction": bubble_fraction(S, Mb), "forward_ms": fwd_ms,
+            "pipeline_ms": pipe_ms, "sequential_ms": seq_ms, "plain_pipeline_ms": ref_ms,
+            "loss": loss.item(), "grad_norm": gnorm, "gaps": gaps, "launches": launches,
+            "predicted_launches": predicted, "peak_gib": peak}
+
+
+def _mesh_train_cfg(layers: int = 0):
+    """The training drive's qwen2.5-3b (the launcher's config: no loss
+    chunking; AdamW with warmup-cosine from 3e-3), cut to ``layers``."""
+    from repro_torch.launch import train as LT
+
+    cfg, optimizer = LT.build("qwen2.5-3b", False, TRAIN_SEQ, TRAIN_BATCH, 100, 3e-3, "auto")
+    return (dataclasses.replace(cfg, num_layers=layers) if layers else cfg), optimizer
+
+
+def _fresh_state(cfg, optimizer):
+    """The seed-0 weights and a fresh optimizer state, peak memory reset."""
+    from repro_torch.models import model as M
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.params_of(init_model(cfg))
+    return params, optimizer.init(params)
+
+
+def _steps(step, params, state, vocab: int, batches) -> dict:
+    """Train steps on SyntheticLM's batches ``batches`` (host clock around
+    synchronized steps)."""
+    times, losses, gnorms = [], [], []
+    for i in batches:
+        batch = _train_data(vocab, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    return {"step_ms": times, "loss": losses, "grad_norm": gnorms}
+
+
+def _chunk_by_chunk_step(cfg, optimizer, params, state, batch, n_shards: int) -> dict:
+    """The mesh step written out by hand: each contiguous chunk through the
+    unsharded loss and gradients, weighted by its token share, summed in
+    shard order; then AdamW once."""
+    from repro_torch.models import model as M
+
+    B = batch["tokens"].shape[0]
+    rows = [{k: v[i * B // n_shards:(i + 1) * B // n_shards] for k, v in batch.items()}
+            for i in range(n_shards)]
+    counts = [M.loss_labels(r)[1].sum() for r in rows]
+    total = torch.clamp(torch.stack(counts).sum(), min=1.0)
+    grads, loss = {}, None
+    for r, c in zip(rows, counts):
+        w = c / total
+        with torch.enable_grad():
+            diff = {k: v.detach().requires_grad_() for k, v in params.items()}
+            l, m = M.loss_fn(M.bind(cfg, diff), cfg, r)
+            g = torch.autograd.grad(l * w, list(diff.values()))
+        for k, v in zip(diff, g):
+            grads[k] = v if k not in grads else grads[k] + v
+        part = m["loss"].detach() * w
+        loss = part if loss is None else loss + part
+    om = optimizer.update_(grads, state, params)
+    return {"loss": loss.item(), "grad_norm": om["grad_norm"].item()}
+
+
+def run_mesh_train(kernels: dict, registry, card: str) -> dict:
+    """(b) qwen2.5-3b at full width and depth (f32 params, bf16 compute,
+    remat), batch 4 x 512 of SyntheticLM, trained under a virtual 2 x 2
+    (data, model) mesh of this card: each step's two batch chunks run
+    forward and backward in turn, their gradients summed in shard order,
+    then clipping and AdamW once. Each run starts from the seed-0 weights:
+    the unsharded step (3 steps), the step written out chunk by chunk (1),
+    the mesh step (3; launch counts zeroed just before and read just after;
+    FlopCounterMode around its first step) and the mesh step on the plain
+    versions (1, FlopCounterMode: drive (d) holds the dry-run to it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.training import make_train_step
+
+    cfg, optimizer = _mesh_train_cfg()
+    mesh = _virtual_mesh((2, 2), ("data", "model"))
+    vocab, steps = cfg.vocab_size, range(MESH_TRAIN_STEPS)
+    params, state = _fresh_state(cfg, optimizer)
+    un = _steps(make_train_step(cfg, optimizer), params, state, vocab, steps)
+    un["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, state
+
+    params, state = _fresh_state(cfg, optimizer)
+    cc = _chunk_by_chunk_step(cfg, optimizer, params, state, _train_data(vocab, 0), 2)
+    cc_bits = _bits(params), _bits(state["mu"]), _bits(state["nu"])
+    del params, state
+
+    params, state = _fresh_state(cfg, optimizer)
+    placed = D.argument_bytes({"params": params, "opt_state": state},
+                              {"batch": _train_data(vocab, 0)}, mesh)
+    step = make_train_step(cfg, optimizer, mesh=mesh)
+    # ---- the mesh train path: counts zeroed just before, read just after
+    for mod in kernels.values():
+        mod.reset_launches()
+    sh = _steps(step, params, state, vocab, steps[:1])
+    bits = _bits(params), _bits(state["mu"]), _bits(state["nu"])
+    rest = _steps(step, params, state, vocab, steps[1:])
+    launches = read_counts(kernels)
+    # ---- end of the mesh train path
+    for k in sh:
+        sh[k] += rest[k]
+    sh["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, state, step
+
+    # FlopCounterMode decomposes the ops it has no formula for, so a step
+    # under it takes other bits: this run is counted, never compared bitwise
+    params, state = _fresh_state(cfg, optimizer)
+    with registry.kernel_mode_scope("ref"), FlopCounterMode(display=False) as plain_counter:
+        plain = _steps(make_train_step(cfg, optimizer, mesh=mesh), params, state, vocab,
+                       steps[:1])
+    plain_flops = plain_counter.get_total_flops()
+    del params, state
+    _free()
+
+    gaps = {k: abs(sh[k][0] - un[k][0]) / abs(un[k][0]) for k in ("loss", "grad_norm")}
+    gaps["plain loss"] = abs(sh["loss"][0] - plain["loss"][0]) / abs(plain["loss"][0])
+    blocks = 2 * cfg.num_layers                   # two chunks a step
+    remat = 2 if cfg.remat != "none" else 1
+    predicted = {"rmsnorm_sm90": MESH_TRAIN_STEPS * (2 * blocks * remat + 2),
+                 "flash_attention_sm90": MESH_TRAIN_STEPS * blocks * remat}
+    ms, un_ms = statistics.median(sh["step_ms"][1:]), statistics.median(un["step_ms"][1:])
+    bitwise = (sh["loss"][0] == cc["loss"] and sh["grad_norm"][0] == cc["grad_norm"]
+               and all(torch.equal(a, b) for a, b in zip(bits, cc_bits)))
+    log(f"mesh train qwen2.5-3b ({cfg.num_layers} layers, f32 params, bf16 compute, remat "
+        f"{cfg.remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ}) on a virtual 2 x 2 mesh: step "
+        f"{ms:.1f} ms (median of steps 2-{MESH_TRAIN_STEPS}; all "
+        f"{[round(t, 1) for t in sh['step_ms']]}), peak {sh['peak_gib']:.2f} GiB; unsharded "
+        f"step {un_ms:.1f} ms (all {[round(t, 1) for t in un['step_ms']]}), peak "
+        f"{un['peak_gib']:.2f} GiB; losses {[round(x, 6) for x in sh['loss']]} (unsharded "
+        f"{[round(x, 6) for x in un['loss']]}); step 1 loss {sh['loss'][0]:.6f} / "
+        f"{un['loss'][0]:.6f}, grad norm {sh['grad_norm'][0]:.6f} / {un['grad_norm'][0]:.6f}, "
+        f"gaps {gaps} (limit {DIST_REL}); bitwise equal to the chunk-by-chunk step (loss, "
+        f"grad norm, params, moments): {bitwise}; FLOPs of step 1 on the plain versions "
+        f"(FlopCounterMode): {plain_flops:.6g}; launches {launches}, predicted {predicted} "
+        f"({card})")
+    if max(gaps.values()) > DIST_REL:
+        raise AssertionError(f"mesh train step 1 differs beyond {DIST_REL}: {gaps}")
+    if not bitwise:
+        raise AssertionError("the mesh step differs from the step run chunk by chunk")
+    if {k: launches[k] for k in predicted} != predicted:
+        raise AssertionError(f"mesh train launches {launches}, predicted {predicted}")
+    if any(launches[k] for k in FIRST_DESIGNS):
+        raise AssertionError(f"a first design launched on the mesh train path: {launches}")
+    return {"layers": cfg.num_layers, "step_ms": ms, "all_step_ms": sh["step_ms"],
+            "peak_gib": sh["peak_gib"], "unsharded_step_ms": un_ms,
+            "unsharded_peak_gib": un["peak_gib"], "losses": sh["loss"],
+            "unsharded_losses": un["loss"], "gaps": gaps, "bitwise_chunk_by_chunk": bitwise,
+            "plain_flops": plain_flops,
+            "placed_bytes": placed, "launches": launches, "predicted_launches": predicted}
+
+
+def run_elastic(card: str) -> dict:
+    """(c) The mesh drive's setup at ELASTIC_LAYERS layers: 3 steps on the
+    virtual 2 x 2 mesh with an async checkpoint (the port's Checkpointer)
+    after step 2; then the checkpoint restored as host arrays,
+    ``reshard_checkpoint`` onto a virtual (1, 2) mesh, gathered whole on
+    this card and step 3 taken again there: its loss within DIST_REL of the
+    uninterrupted step 3's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.runtime import elastic_restart_plan, gather_checkpoint, reshard_checkpoint
+    from repro_torch.training import make_train_step
+
+    cfg, optimizer = _mesh_train_cfg(ELASTIC_LAYERS)
+    big, small = _virtual_mesh((2, 2), ("data", "model")), _virtual_mesh((1, 2), ("data", "model"))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        params, state = _fresh_state(cfg, optimizer)
+        step = make_train_step(cfg, optimizer, mesh=big)
+        run = _steps(step, params, state, cfg.vocab_size, range(2))
+        ckpt = Checkpointer(ckpt_dir)
+        t0 = time.perf_counter()
+        ckpt.save({"params": params, "opt_state": state}, step=2)
+        snapshot_s = time.perf_counter() - t0
+        third = _steps(step, params, state, cfg.vocab_size, range(2, 3))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*params.values(), *state["mu"].values(), *state["nu"].values()))
+        del params, state, step
+        _free()
+        t0 = time.perf_counter()
+        tree, at = ckpt.restore(None)
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = gather_checkpoint(reshard_checkpoint(tree, small), small, "cuda")
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        resumed = _steps(make_train_step(cfg, optimizer, mesh=small), tree["params"],
+                         tree["opt_state"], cfg.vocab_size, range(2, 3))
+        step_after = int(tree["opt_state"]["step"])
+        del tree
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        _free()
+    plan = elastic_restart_plan(4, 2, TRAIN_BATCH)
+    gap = abs(resumed["loss"][0] - third["loss"][0]) / abs(third["loss"][0])
+    log(f"elastic qwen2.5-3b ({cfg.num_layers} of 36 layers, full width): steps 1-3 on a "
+        f"virtual 2 x 2 mesh, losses {run['loss'] + third['loss']}; checkpoint of step {at} "
+        f"({nbytes / 2**30:.2f} GiB of params and moments): snapshot {snapshot_s:.1f} s, "
+        f"restored as host arrays in {restore_s:.1f} s (after the async write), resharded onto "
+        f"a virtual (1, 2) mesh and gathered whole in {reshard_s:.1f} s; step 3 there loss "
+        f"{resumed['loss'][0]:.6f} against {third['loss'][0]:.6f} uninterrupted (gap {gap:.3g}, "
+        f"limit {DIST_REL}); optimizer step after it {step_after}; elastic_restart_plan(4, 2, "
+        f"{TRAIN_BATCH}) = {plan} ({card})")
+    if at != 2 or step_after != 3:
+        raise AssertionError(f"resumed from step {at}, optimizer step {step_after} after it")
+    if gap > DIST_REL:
+        raise AssertionError(f"the resumed step 3 differs from the uninterrupted one: {gap}")
+    return {"layers": cfg.num_layers, "losses": run["loss"] + third["loss"],
+            "resumed_loss": resumed["loss"][0], "gap": gap, "checkpoint_gib": nbytes / 2**30,
+            "snapshot_s": snapshot_s, "restore_s": restore_s, "reshard_s": reshard_s,
+            "plan": plan}
+
+
+def collect_dryrun(proc: subprocess.Popen, mesh_train: dict, card: str) -> dict:
+    """(d) The dry-runs started by ``start_dryrun``: the mesh drive's own
+    cell (a train ShapeConfig of 4 x 512 on a 2 x 2 meta mesh) must count
+    the FLOPs FlopCounterMode counted in one real step of it (on the plain
+    versions, the ops the dry-run's meta tensors take), and place the bytes
+    the drive placed at each position; its roofline seconds beside the
+    drive's step time. Then qwen2.5-3b train_4k on the 16 x 16 production
+    mesh of meta positions: its record and wall time."""
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import ReplayMesh
+
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("the dry-run child did not finish within 900 s") from None
+    waited = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"the dry-run child failed ({proc.returncode}):\n{err[-4000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    cell, prod = rec["mesh_train"], rec["train_4k"]
+    cfg, optimizer = _mesh_train_cfg()
+    meta = ReplayMesh((2, 2), ("data", "model"), ["meta"] * 4)
+    sp = SP.input_specs(cfg, ShapeConfig("mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train"), meta,
+                        optimizer)
+    spec_placed = D.argument_bytes({"params": sp["params"], "opt_state": sp["opt_state"]},
+                                   {"batch": sp["batch"]}, meta)
+    placed = mesh_train["placed_bytes"]
+    rl = cell["roofline"]
+    log(f"dry-run of the mesh drive's cell (qwen2.5-3b train {TRAIN_BATCH} x {TRAIN_SEQ}, 2 x 2 "
+        f"meta mesh): "
+        f"FLOPs {cell['collectives']['flops_global']:.6g} (one real step on the plain "
+        f"versions: {mesh_train['plain_flops']:.6g}), busiest position "
+        f"{cell['memory']['position']}: {rl['hlo_flops_per_device']:.6g} FLOPs, "
+        f"{rl['hlo_bytes_per_device']:.6g} bytes, arguments "
+        f"{cell['memory']['argument_size_in_bytes']} bytes (the drive placed {placed}; the "
+        f"reference's layout {cell['memory']['reference_layout_argument_size_in_bytes']}); "
+        f"roofline compute {rl['compute_s'] * 1e3:.2f} ms, memory {rl['memory_s'] * 1e3:.2f} ms, "
+        f"collective {rl['collective_s'] * 1e3:.2f} ms ({rl['dominant']}) against the measured "
+        f"step {mesh_train['step_ms']:.1f} ms; fake run {cell['wall_s']:.1f} s ({card})")
+    rl4 = prod["roofline"]
+    log(f"dry-run qwen2.5-3b train_4k on the {prod['mesh']} production mesh (meta): wall "
+        f"{prod['wall_s']:.1f} s (the phase waited {waited:.1f} s for the child); "
+        f"{json.dumps(prod)}")
+    if cell["collectives"]["flops_global"] != mesh_train["plain_flops"]:
+        raise AssertionError("the dry-run's FLOPs differ from the real step's")
+    if spec_placed != {int(k): v for k, v in placed.items()} or \
+            cell["memory"]["argument_size_in_bytes"] != placed[0]:
+        raise AssertionError(f"dry-run placement {spec_placed} differs from the drive's {placed}")
+    shape = SHAPES["train_4k"]
+    want = cfg.model_flops_per_token(shape.seq_len) * shape.tokens_per_step
+    if prod["roofline"]["model_flops_global"] != want or prod["cost_mode"] != "exact":
+        raise AssertionError("the production cell's model FLOPs are not the config's")
+    return {"mesh_train": {"flops": cell["collectives"]["flops_global"],
+                           "roofline": rl, "memory": cell["memory"],
+                           "collectives": cell["collectives"], "wall_s": cell["wall_s"],
+                           "measured_step_ms": mesh_train["step_ms"]},
+            "train_4k": prod, "waited_s": waited}
+
+
+def run_distributed(kernels: dict, registry, card: str, dryrun: subprocess.Popen) -> dict:
+    """Phase 7: pipeline (a), training under a mesh (b), elastic (c), the
+    dry-run against the card (d); each drive's launch counts zeroed just
+    before its main path and read just after."""
+    t0 = time.perf_counter()
+    out = {"pipeline": run_pipeline(kernels, registry, card),
+           "mesh_train": run_mesh_train(kernels, registry, card),
+           "elastic": run_elastic(card)}
+    out["dryrun"] = collect_dryrun(dryrun, out["mesh_train"], card)
+    _free()
+    out["seconds"] = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved() / 2**30
+    log(f"distributed phase: {out['seconds']:.1f} s; {reserved:.2f} GiB reserved after it")
+    if torch.cuda.memory_reserved() > RESERVED_LIMIT:
+        raise AssertionError("the distributed phase left more than 8 GiB reserved")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3093,26 +3635,42 @@ def main() -> int:
     runs["cluster"] = cluster.pop("launches")
     log(f"path cluster: launches {runs['cluster']}")
 
-    # ---- the taskgraph path: counts zeroed just before, read just after
-    for mod in kernels.values():
-        mod.reset_launches()
-    t0 = time.perf_counter()
-    taskgraph = run_taskgraph(kernels, card)
-    runs["taskgraph"] = read_counts(kernels)
-    # ---- end of the taskgraph path
-    log(f"path taskgraph: {len(taskgraph)} runs in {time.perf_counter() - t0:.1f} s; "
-        f"launches {runs['taskgraph']}")
+    # the distributed phase's dry-runs take minutes of host time on meta
+    # tensors: a child process runs them beside the taskgraph, training and
+    # distributed drives, and the distributed phase collects them
+    dryrun = start_dryrun()
+    try:
+        # ---- the taskgraph path: counts zeroed just before, read just after
+        for mod in kernels.values():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        taskgraph = run_taskgraph(kernels, card)
+        runs["taskgraph"] = read_counts(kernels)
+        # ---- end of the taskgraph path
+        log(f"path taskgraph: {len(taskgraph)} runs in {time.perf_counter() - t0:.1f} s; "
+            f"launches {runs['taskgraph']}")
 
-    # ---- the training path: counts zeroed just before, read just after
-    for mod in kernels.values():
-        mod.reset_launches()
-    training = run_training(kernels, registry, card)
-    runs["train"] = read_counts(kernels)
-    # ---- end of the training path
-    log(f"path train: launches {runs['train']}")
-    for kernel in ("rmsnorm_sm90", "flash_attention_sm90", "ssd_chunk_sm90"):
-        if not runs["train"][kernel] > 0:
-            raise AssertionError(f"{kernel} never launched on the training path")
+        # ---- the training path: counts zeroed just before, read just after
+        for mod in kernels.values():
+            mod.reset_launches()
+        training = run_training(kernels, registry, card)
+        runs["train"] = read_counts(kernels)
+        # ---- end of the training path
+        log(f"path train: launches {runs['train']}")
+        for kernel in ("rmsnorm_sm90", "flash_attention_sm90", "ssd_chunk_sm90"):
+            if not runs["train"][kernel] > 0:
+                raise AssertionError(f"{kernel} never launched on the training path")
+
+        # ---- the distributed paths: each drive zeroes the counts just
+        # before its main path and reads them just after
+        distributed = run_distributed(kernels, registry, card, dryrun)
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.communicate()
+    runs["pipeline"] = distributed["pipeline"]["launches"]
+    runs["mesh train"] = distributed["mesh_train"]["launches"]
+    log(f"paths pipeline and mesh train: launches {runs['pipeline']}, {runs['mesh train']}")
 
     for e in entries:
         src = Path(e["source"]).stem
@@ -3131,6 +3689,7 @@ def main() -> int:
     log(json.dumps({"families": families, "card": card}))
     log(json.dumps({"cluster": cluster}))
     log(json.dumps({"mesh": mesh, "card": card}))
+    log(json.dumps({"distributed": distributed, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

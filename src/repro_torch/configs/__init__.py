@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, reduced
+from .base import SHAPES, ModelConfig, ShapeConfig, reduced, shape_applicable
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
@@ -53,4 +53,10 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCHS", "ModelConfig", "archs", "get_config", "reduced", "register"]
+def all_configs() -> dict[str, ModelConfig]:
+    """The ten ported architectures' configs, by name."""
+    return {a: get_config(a) for a in ARCHS}
+
+
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "all_configs", "archs",
+           "get_config", "reduced", "register", "shape_applicable"]

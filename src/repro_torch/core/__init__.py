@@ -3,11 +3,11 @@ wave-fused lowering, cost-model-driven batcher selection, structural
 interning, CUDA-graph replay, the replay mesh (``mesh=`` on ``lower_tdg``,
 ``ReplayExecutor``, ``@taskgraph`` and the AOT path: fused classes' lanes
 split over ``sharding.replay``'s mesh), TDG serialization and exported
-(AOT) replay programs (port of ``repro.core``; ``pipeline.py`` is not
-ported yet)."""
+(AOT) replay programs (port of ``repro.core``; the pipeline lowering is
+``core.pipeline``, imported on its own as in the reference)."""
 from .costmodel import (BatcherDecision, BucketTuner, ClassCost, CostModel,
-                        adaptive_enabled, default_model, fit_boundaries,
-                        plan_key, pow2_boundaries, resolve_batcher)
+                        adaptive_enabled, capture_cost_analysis, default_model,
+                        fit_boundaries, plan_key, pow2_boundaries, resolve_batcher)
 from .executor import EagerExecutor, ExecStats, ReplayExecutor
 from .fuse import (FusionPlan, WaveClass, classify_wave, fused_tdg_as_function,
                    plan as fusion_plan)
@@ -33,6 +33,7 @@ __all__ = [
     "buffers_signature", "structure_signature",
     "CostModel", "ClassCost", "BatcherDecision", "BucketTuner",
     "adaptive_enabled", "resolve_batcher", "plan_key", "default_model",
+    "capture_cost_analysis",
     "fit_boundaries", "pow2_boundaries",
     "FusionPlan", "WaveClass", "classify_wave", "fused_tdg_as_function",
     "fusion_plan",

@@ -94,6 +94,21 @@ class ClassCost:
 UNMEASURED = ClassCost(flops=None, bytes_accessed=None, source="unavailable")
 
 
+def capture_cost_analysis(fn: Callable[[Any], Any], fakes: Any, mode) -> dict | None:
+    """``flops`` (``FlopCounterMode``) and ``bytes accessed`` (inputs and
+    outputs) of one call of ``fn`` on fake tensors of ``mode``; None for a
+    call that cannot run on fake tensors (the counterpart of the
+    reference's ``compiled.cost_analysis()``, which degrades to None)."""
+    try:
+        with torch.no_grad(), mode, FlopCounterMode(display=False) as counter:
+            out = fn(fakes)
+    except Exception:   # a payload that cannot run on fake tensors
+        return None
+    nbytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves((fakes, out))
+                 if isinstance(t, torch.Tensor))
+    return {"flops": float(counter.get_total_flops()), "bytes accessed": float(nbytes)}
+
+
 @dataclasses.dataclass(frozen=True)
 class BatcherDecision:
     """One batcher choice plus the numbers that drove it."""

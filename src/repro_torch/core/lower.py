@@ -50,6 +50,9 @@ from ..kernels import registry as _kreg
 from ..sharding import replay as _shreplay
 from . import costmodel as _costmodel
 from . import fuse as _fuse
+# Defined in costmodel (as the reference defines it there) and re-exported
+# here, where every AotExecutable captures it.
+from .costmodel import capture_cost_analysis as _capture_cost_analysis
 from . import schedule as _schedule
 from .tdg import TDG, structure_signature
 
@@ -682,21 +685,6 @@ class AotExecutable:
         self.replay.release()
 
 
-def _cost_analysis(fn: Callable[[dict], dict], fakes: dict, mode) -> dict | None:
-    """``flops`` (``FlopCounterMode``) and ``bytes accessed`` (inputs and
-    outputs) of one call of ``fn`` on fake tensors of ``mode``."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    try:
-        with torch.no_grad(), mode, FlopCounterMode(display=False) as counter:
-            out = fn(fakes)
-    except Exception:   # a payload that cannot run on fake tensors
-        return None
-    nbytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves((fakes, out))
-                 if isinstance(t, torch.Tensor))
-    return {"flops": float(counter.get_total_flops()), "bytes accessed": float(nbytes)}
-
-
 def aot_compile_tdg(tdg: TDG, buffers: Mapping[str, Any],
                     outputs: Sequence[str] | None = None,
                     donate_slots: Sequence[str] = (),
@@ -734,7 +722,7 @@ def aot_compile_tdg(tdg: TDG, buffers: Mapping[str, Any],
     fakes = pytree.tree_map(mode.from_tensor, tensors)
     with torch.no_grad(), mode:
         fn(fakes)
-    cost = _cost_analysis(fn, fakes, mode)
+    cost = _capture_cost_analysis(fn, fakes, mode)
     with torch.no_grad():
         program = torch.export.export(_Program(fn), (tensors,), strict=False)
     # The program would keep (and save) its example inputs: the buffers

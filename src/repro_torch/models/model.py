@@ -251,6 +251,16 @@ def shifted_labels(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return labels, mask
 
 
+def loss_labels(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The labels :func:`loss_fn` scores and its mask (the last position
+    dropped, times ``batch["loss_mask"]`` when given); the mask's sum is the
+    token count ``loss_fn`` reports."""
+    labels, mask = shifted_labels(batch["tokens"])
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"].float()
+    return labels, mask
+
+
 def loss_fn(params: Model, cfg: ModelConfig, batch: dict):
     """Next-token CE (+ MoE aux) -> (loss, {loss, ce, aux, tokens}).
 
@@ -263,9 +273,7 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict):
     """
     tokens = batch["tokens"]
     h, aux, _ = hidden_states(params, cfg, tokens, enc_out=_enc_out(params, cfg, batch))
-    labels, mask = shifted_labels(tokens)
-    if "loss_mask" in batch:
-        mask = mask * batch["loss_mask"].float()
+    labels, mask = loss_labels(batch)
 
     Sq = tokens.shape[1]
     chunk = cfg.loss_chunk

@@ -215,7 +215,7 @@ def moe_apply_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor
         dev0 = mesh.device_at({**coords, "model": 0})
         xt = x[i * Bl:(i + 1) * Bl].reshape(T, d).to(dev0)
         router = types.SimpleNamespace(router=types.SimpleNamespace(w=p.router.w.to(dev0)))
-        with _shreplay.on_device(dev0):
+        with _shreplay.at_position(mesh, {**coords, "model": 0}, "all-to-all", "all-to-all"):
             probs, gate_vals, expert_idx = route(router, cfg, xt)
             auxes.append(_aux(cfg, probs, expert_idx).to(home))
             flat_expert = expert_idx.reshape(-1)
@@ -225,7 +225,7 @@ def moe_apply_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor
         combined = None
         for m in range(tp):
             dev = mesh.device_at({**coords, "model": m})
-            with _shreplay.on_device(dev):
+            with _shreplay.at_position(mesh, {**coords, "model": m}, "all-to-all", "all-to-all"):
                 local_e = flat_expert.to(dev) - m * E_loc
                 mine = (local_e >= 0) & (local_e < E_loc) & keep.to(dev)
                 row = torch.clamp(local_e, 0, E_loc - 1) * C + pos.to(dev)

@@ -1,5 +1,6 @@
-"""Training runtime: fault tolerance and straggler detection (the
-reference's ``elastic`` resharding waits for multi-device training)."""
+"""Training runtime: fault tolerance, elasticity, straggler detection."""
+from .elastic import elastic_restart_plan, gather_checkpoint, reshard_checkpoint
 from .fault_tolerance import RunState, StepTimer, StragglerPolicy, run_with_recovery
 
-__all__ = ["RunState", "run_with_recovery", "StepTimer", "StragglerPolicy"]
+__all__ = ["RunState", "run_with_recovery", "StepTimer", "StragglerPolicy",
+           "reshard_checkpoint", "gather_checkpoint", "elastic_restart_plan"]

@@ -181,6 +181,22 @@ def logical_axes_for_path(names: tuple[str, ...], ndim: int) -> tuple[str | None
     return logical[-ndim:] if len(logical) > ndim else logical
 
 
+def flatten_tree(tree: Any, prefix: str = "") -> dict[str, Any]:
+    """{dotted path: leaf} of nested dicts (``opt_state.mu.layers.0.attn.wq.w``),
+    the names the partition rules spec a leaf by."""
+    if isinstance(tree, dict):
+        return {n: leaf for k, v in tree.items()
+                for n, leaf in flatten_tree(v, f"{prefix}{k}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def unflatten_like(tree: Any, leaves: Mapping[str, Any], prefix: str = "") -> Any:
+    """``tree``'s nested dicts with each leaf replaced by ``leaves[dotted path]``."""
+    if isinstance(tree, dict):
+        return {k: unflatten_like(v, leaves, f"{prefix}{k}.") for k, v in tree.items()}
+    return leaves[prefix[:-1]]
+
+
 def _named_leaves(params: Any) -> dict[str, Any]:
     """{dotted name: tensor or shape} of a module or a name -> leaf mapping."""
     if isinstance(params, nn.Module):
@@ -222,13 +238,6 @@ def sanitize_spec(shape: tuple, spec: PartitionSpec, mesh: ReplayMesh) -> Partit
     return PartitionSpec(*out)
 
 
-def _coords(mesh: ReplayMesh, index: int) -> dict[str, int]:
-    coords = {}
-    for name, size in reversed(list(zip(mesh.axis_names, mesh.axis_sizes))):
-        index, coords[name] = divmod(index, size)
-    return coords
-
-
 def shard_index(mesh: ReplayMesh, entry, coords: Mapping[str, int]) -> int:
     """Which slice of a dim sharded over ``entry`` the position at
     ``coords`` holds (row-major over the entry's axes)."""
@@ -249,7 +258,7 @@ def place(x: torch.Tensor, spec: PartitionSpec, mesh: ReplayMesh) -> tuple:
     copies: dict[torch.device, torch.Tensor] = {}
     out = []
     for i, device in enumerate(mesh.devices):
-        coords = _coords(mesh, i)
+        coords = mesh.coords_of(i)
         part = x
         for dim, entry in enumerate(spec):
             n = _axis_size(mesh, entry)
@@ -264,6 +273,24 @@ def place(x: torch.Tensor, spec: PartitionSpec, mesh: ReplayMesh) -> tuple:
             part = part.to(device)
         out.append(part)
     return tuple(out)
+
+
+def unplace(parts: Sequence[torch.Tensor], spec: PartitionSpec, shape: tuple,
+            mesh: ReplayMesh, device: torch.device | str) -> torch.Tensor:
+    """The whole leaf of ``shape`` on ``device`` from the positions' slices
+    that :func:`place` made under ``spec`` (the inverse of :func:`place`)."""
+    spec = sanitize_spec(tuple(shape), spec, mesh)
+    out = torch.empty(shape, dtype=parts[0].dtype, device=device)
+    for i, part in enumerate(parts):
+        coords = mesh.coords_of(i)
+        view = out
+        for dim, entry in enumerate(spec):
+            n = _axis_size(mesh, entry)
+            if n > 1:
+                size = shape[dim] // n
+                view = view.narrow(dim, shard_index(mesh, entry, coords) * size, size)
+        view.copy_(part)
+    return out
 
 
 def param_shardings(params: Any, mesh: ReplayMesh,

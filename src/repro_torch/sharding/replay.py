@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import os
+import threading
 import weakref
 from typing import Any
 
@@ -150,18 +151,23 @@ def pad_group(members: list, mesh: ReplayMesh | None) -> int:
     return pad
 
 
-def shard_devices(mesh: ReplayMesh) -> list[torch.device]:
-    """The device each batch shard runs on, in shard order: the position
-    whose batch coordinates are the shard's and whose other coordinates are
-    0 (a single controller runs each batch shard once)."""
+def shard_coords(mesh: ReplayMesh) -> list[dict[str, int]]:
+    """Each batch shard's coordinates on the batch axes, in shard order."""
     axes = batch_axes(mesh)
     out = []
     for i in range(batch_axis_size(mesh)):
         coords = {}
         for a in reversed(axes):
             i, coords[a] = divmod(i, mesh.shape[a])
-        out.append(mesh.device_at(coords))
+        out.append(coords)
     return out
+
+
+def shard_devices(mesh: ReplayMesh) -> list[torch.device]:
+    """The device each batch shard runs on, in shard order: the position
+    whose batch coordinates are the shard's and whose other coordinates are
+    0 (a single controller runs each batch shard once)."""
+    return [mesh.device_at(c) for c in shard_coords(mesh)]
 
 
 def lane_chunks(n_lanes: int, mesh: ReplayMesh) -> list[tuple[torch.device, int, int]]:
@@ -238,3 +244,39 @@ def on_device(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+class _Position(threading.local):
+    parts: tuple = ()
+
+
+_POSITION = _Position()
+
+
+@contextlib.contextmanager
+def at_position(mesh: ReplayMesh, coords: dict[str, int], inbound: str, outbound: str):
+    """Run one mesh position's part of a single-controller call: the
+    position's device is made current and the part is named, so an
+    observer (``launch.dryrun``'s per-position counts) can attribute the
+    work and the data that moves. ``inbound`` / ``outbound`` name the
+    reference's collective that carries data into and out of the part
+    (``"all-gather"`` and ``"all-reduce"`` for a batch shard of a train
+    step, ``"all-to-all"`` for an expert shard, ``"collective-permute"``
+    for a pipeline stage). Parts nest (an expert shard inside a batch
+    shard); outside every part the caller's code runs at position 0."""
+    part = (mesh.index_at(coords), inbound, outbound)
+    _POSITION.parts = _POSITION.parts + (part,)
+    try:
+        with on_device(mesh.device_at(coords)):
+            yield
+    finally:
+        _POSITION.parts = _POSITION.parts[:-1]
+
+
+def current_part() -> tuple[int, int, str | None, str | None]:
+    """``(position, depth, inbound, outbound)`` of the innermost running
+    :func:`at_position` part; ``(0, 0, None, None)`` outside every part."""
+    if not _POSITION.parts:
+        return 0, 0, None, None
+    index, inbound, outbound = _POSITION.parts[-1]
+    return index, len(_POSITION.parts), inbound, outbound

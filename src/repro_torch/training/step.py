@@ -6,6 +6,9 @@ Two granularities of the train step, as in the reference:
   backward + clip + AdamW). The reference's launcher jits it with
   ``donate_argnums=(0, 1)``; here the params and moments it is given are
   updated in place (``Optimizer.update_``), so one copy of each is held.
+  Given a ``mesh`` it runs data parallel over the mesh's batch axes, one
+  controller driving every batch shard (the reference ``jit``s the same
+  step with ``in_shardings`` and GSPMD partitions it).
 
 * ``make_tdg_train_region`` — the paper-faithful fine-grained path: the
   step as a ``TaskGraphRegion`` of ``2n + 5`` tasks (embed, per-layer
@@ -25,23 +28,78 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core import TaskGraphRegion
+from ..launch.mesh import ReplayMesh
 from ..models import layers as L
 from ..models import model as M
 from ..models import transformer as T
 from ..optim.adamw import Optimizer, apply_updates
+from ..sharding import partition as _partition
+from ..sharding import replay as _shreplay
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
+def _loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
+                    weight: torch.Tensor | None = None):
+    """``loss_fn`` on ``batch`` and the gradients of ``weight * loss`` (of
+    the loss itself without a weight) with respect to ``params``."""
+    with torch.enable_grad():
+        diff = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, metrics = M.loss_fn(M.bind(cfg, diff), cfg, batch)
+        target = loss if weight is None else loss * weight
+        grads = torch.autograd.grad(target, list(diff.values()))
+    return {k: v.detach() for k, v in metrics.items()}, dict(zip(diff, grads))
+
+
+def sharded_loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
+                           mesh: ReplayMesh) -> tuple[dict, dict]:
+    """The whole batch's loss metrics and gradients, data parallel over
+    ``mesh``'s batch axes, one controller driving every batch shard.
+
+    The batch splits into one contiguous chunk a batch shard
+    (``replay.lane_chunks``: the batch must be a multiple of the batch
+    axes' size). Each chunk's forward and backward run on its shard's
+    device against ``replicate``d params (on virtual positions nothing is
+    copied), with the loss weighted by the chunk's share of the tokens
+    ``loss_fn`` counts, so the weighted sum is the whole batch's mean.
+    MoE layers with ``moe_impl="shard_map"`` take their experts over the
+    ``"model"`` positions of the chunk's row of the mesh. The gradients and
+    metrics come back to the caller's device and are summed there in shard
+    order. Dense leaves are computed whole by each batch shard, never split
+    over ``"model"`` (GSPMD would split them). Returns ``(metrics, grads)``.
+    """
+    home = batch["tokens"].device
+    chunks = _shreplay.lane_chunks(batch["tokens"].shape[0], mesh)
+    rows = [{k: v[a:b] for k, v in batch.items()} for _, a, b in chunks]
+    counts = [M.loss_labels(r)[1].sum() for r in rows]
+    total = torch.clamp(torch.stack(counts).sum(), min=1.0)
+    metrics, grads = {}, {}
+    for coords, (device, _, _), row, count in zip(_shreplay.shard_coords(mesh), chunks,
+                                                  rows, counts):
+        with _shreplay.at_position(mesh, coords, "all-gather", "all-reduce"), \
+                _partition.use_mesh(mesh.select(coords)):
+            weight = (count / total).to(device)
+            m, g = _loss_and_grads(cfg, _shreplay.replicate(params, device),
+                                   _shreplay.replicate(row, device), weight)
+            m = {k: v * weight if k != "tokens" else v for k, v in m.items()}
+        for tree, part in ((metrics, m), (grads, g)):
+            for k, v in part.items():
+                v = v.to(home)
+                tree[k] = v if k not in tree else tree[k] + v
+    return metrics, grads
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh: ReplayMesh | None = None):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``, with
-    ``params`` and ``opt_state`` updated in place and returned."""
+    ``params`` and ``opt_state`` updated in place and returned. With
+    ``mesh``, the loss and gradients come from
+    :func:`sharded_loss_and_grads`; clipping and AdamW then run once, on
+    the params' device."""
 
     def train_step(params, opt_state, batch):
-        with torch.enable_grad():
-            diff = {k: v.detach().requires_grad_() for k, v in params.items()}
-            loss, metrics = M.loss_fn(M.bind(cfg, diff), cfg, batch)
-            grads = torch.autograd.grad(loss, list(diff.values()))
-        opt_metrics = optimizer.update_(dict(zip(diff, grads)), opt_state, params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is None:
+            metrics, grads = _loss_and_grads(cfg, params, batch)
+        else:
+            metrics, grads = sharded_loss_and_grads(cfg, params, batch, mesh)
+        opt_metrics = optimizer.update_(grads, opt_state, params)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

@@ -14,13 +14,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    public wrapper with one counted launch of the kernel that
    ``kernel_for`` picks by dtype and shape:
    RMSNorm (residual, (B, S, H, hd) input, ragged and wide d; d a multiple
-   of 16 16-byte vectors takes the register-resident kernel, with its
+   of one 16-byte vector takes the register-resident kernel, with its
    edges: 16-lane rows, 2-8 warps a row, bf16 w, a partly filled lane, a
-   grid tail) and flash attention (GQA, MQA, MHA, ragged S, window, chunk,
-   decode offset, cross attention, head dims 16-128; bf16 at head dim 64 /
-   128 takes the TMA + wgmma kernel, with its edges: decode-shaped, a
-   window, Sk off its 128-key tile) at atol = rtol = 2e-5 in f32 and 2e-2
-   in bf16; grouped matmul (the reference's cases in f32 and bf16, ragged
+   grid tail, hymba's d 1600 and d 1000 and 16; odd d the first design)
+   and flash attention (GQA, MQA, MHA, ragged S, window, chunk, decode
+   offset, cross attention, head dims 16-128; head dim 64 / 128 takes the
+   TMA + wgmma kernel, bf16 with its edges: decode-shaped, a window, Sk off
+   its 128-key tile; f32 as 3xTF32 products at each mask and edge and at
+   the dense prefill shape, where single-pass TF32's error is printed) at
+   atol = rtol = 2e-5 in f32 and 2e-2 in bf16; grouped matmul (the reference's cases in f32 and bf16, ragged
    C, d and f, the MoE prefill and decode shapes; bf16 with d, f multiples
    of 8 takes the TMA + wgmma kernel, with C of 1, 65, 200 and 300 and d, f
    off its tiles) at atol = TOL·d, rtol = TOL as the reference's test, plus
@@ -39,7 +41,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    them) with CUDA events at the paths' shapes: RMSNorm at the prefill,
    decode, qk-norm and mamba2 block shapes beside the launch floor (a
    one-element ``zero_()``) timed the same way, flash attention at the
-   dense and MoE prefill shapes, grouped matmul at prefill and decode, SSD
+   dense and MoE prefill shapes in bf16 and at the taskgraph's fused wave
+   and the dense prefill shape in f32, grouped matmul at prefill and decode, SSD
    at the mamba2 shape and its bound both ways (f32 CUDA cores, and bytes
    against 3xTF32 tensor-core operations). Then each custom op's backward
    rule (a plain-torch function, ``kernels/ref.py``) at the training
@@ -57,8 +60,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    whisper's 1500 frames (4 x 1500, 12/12 heads of 64), whisper's
    cross-attention (Sq 512 against Sk 1500) and hymba's GQA 5 (25/5 heads of
    64) under its 1024-token window at 4 x 2048 (prompts of 512 never reach
-   the window); the first-design RMSNorm at hymba's d 1600 (2048 rows,
-   bf16); grouped matmul at llama4's (16, 160, 5120) @ (16, 5120, 8192)
+   the window); RMSNorm at hymba's d 1600 (2048 and 16 rows, bf16, beside
+   the first design); grouped matmul at llama4's (16, 160, 5120) @ (16, 5120, 8192)
    bf16; SSD at hymba's 50 heads of 64, state 16, chunk 128.
 3. Paths, one model at a time (the previous one freed first), two paths a
    model, each driven the same way: 4 tenants each prefill batch 4 x 512
@@ -80,7 +83,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    checks 0 < captures <= the (class, bucket) pairs its trace shows, and
    runs one fixed group of 4 (``autostart=False``) through a captured and
    an uncaptured server: the same tokens and caches. The first designs of
-   all four kernels launch 0 times on every path. After each model is
+   all four kernels launch 0 times on every path (and, checked once all
+   phases ran, on every path of every phase). After each model is
    freed, at most 8 GiB stay reserved.
    a. qwen2.5-3b, full width and depth: the TMA + wgmma flash attention
       launched 36 times a tenant in prefill, the register-resident
@@ -139,10 +143,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    768)), all at full width. The TMA + wgmma flash attention must launch
    once a layer a tenant in prefill (whisper: encoder, self- and
    cross-attention), the register-resident RMSNorm in prefill and decode on
-   every model but whisper (LayerNorm, plain torch), grouped matmul 3 times
-   a layer in prefill and in decode on llama4, the tensor-core SSD once a
-   layer in prefill and never in decode on hymba, and the first-design
-   RMSNorm (d 1600) in prefill and decode on hymba; no other first design.
+   every model but whisper (LayerNorm, plain torch; hymba's d 1600 too),
+   grouped matmul 3 times a layer in prefill and in decode on llama4, the
+   tensor-core SSD once a layer in prefill and never in decode on hymba; no
+   first design.
    Then (a) in f32 with the same weights, tenant 0's prefill logits and 3
    decode steps, kernels against plain within relative L2 1e-3 (llama4's
    plain run pinned to the kernel run's expert choices); (b) layer 0 in
@@ -197,8 +201,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    agree per output within a stated share of its largest magnitude. No
    class may fall back to the unrolled form; the RMSNorm and attention
    classes are fused by ``vmap``, and their kernels (``rmsnorm_sm90``,
-   ``flash_attention_sm90``, the f32 first-design ``flash_attention``) must
-   launch inside the captured graph: their counters rise by twice one
+   ``flash_attention_sm90`` in bf16 and, as ``fa_sm90_tf32_kernel``, in
+   f32) must launch inside the captured graph: their counters rise by twice one
    uncaptured replay's launches at the first call (warm-up and capture),
    stay still over the replays, and a profiler trace of three replays shows
    the kernel's name. One line per run gives tasks, waves, fused classes,
@@ -276,9 +280,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    At most 8 GiB may stay reserved after the phase.
 
 In the ``{"kernels": [...]}`` line, ``launches_by_path`` holds each path's
-counts and ``decode_round_replay_launches`` the launches of the kernel's
-symbol in the profiled decode round's trace (graph replays, which the
-counts do not see).
+counts of the entry's source (the bf16 and f32 attention kernels share
+``flash_attention_sm90.cu`` and its count; the f32 entry adds
+``launches_f32_taskgraph_capture``, the f32 attention runs' own launches)
+and ``decode_round_replay_launches`` the launches of the kernel's symbol in
+the profiled decode round's trace (graph replays, which the counts do not
+see).
 
 The last lines are one ``{"kernels": [...]}`` JSON object (with each op's
 backward rule: ``backward_ms``, ``backward_bound_ms``, ...), one
@@ -322,8 +329,9 @@ TENANTS, BATCH, PROMPT, DECODE_STEPS = 4, 4, 512, 8
 TG_TOKENS = 65536                   # the taskgraph phase's rmsnorm_blocks rows (d 2048)
 TG_BF16_ATTN = (64, 2048, 16, 128)  # its bf16 attention_blocks: seqs, seq, heads, hd
 TG_F32_ATTN = (16, 128, 128, 4, 4, 64)   # its f32 one: B, Sq, Sk, Hq, Hkv, D
-FIRST_DESIGNS = ("flash_attention", "grouped_matmul", "rmsnorm",
-                 "ssd_chunk")   # kept for the dtypes and shapes the new kernels do not take
+# kept for the dtypes and shapes the Hopper designs do not take; no path
+# launches them
+FIRST_DESIGNS = ("flash_attention", "grouped_matmul", "rmsnorm", "ssd_chunk")
 MOE_LAYERS = 16                     # of 48: f32 params of all 48 take 122 GB
 
 
@@ -469,6 +477,17 @@ def check_rmsnorm(rms, ref, gen) -> dict:
         ((TG_TOKENS, 2048), torch.bfloat16, torch.float32, False),
         ((TG_TOKENS // 16, 2048), torch.bfloat16, torch.float32, False),
         ((TG_TOKENS // 256, 2048), torch.bfloat16, torch.float32, False),
+        # widths off the 16-vector tile take the register-resident kernel with
+        # a lane's last vectors predicated: hymba's d 1600 (prefill, decode
+        # with a residual, its f32 parity run), d 1000 and d 16 in bf16; odd d
+        # takes the first design
+        ((TENANTS * PROMPT, 1600), torch.bfloat16, torch.float32, False),
+        ((TENANTS * BATCH, 1600), torch.bfloat16, torch.float32, True),
+        ((64, 1600), torch.float32, torch.float32, True),
+        ((33, 1000), torch.bfloat16, torch.bfloat16, True),
+        ((5, 16), torch.bfloat16, torch.float32, False),
+        ((7, 1001), torch.float32, torch.float32, False),
+        ((7, 1001), torch.bfloat16, torch.float32, True),
     ]
     worst, by_kernel = 0.0, {}
     for shape, xdt, wdt, res in cases:
@@ -548,6 +567,17 @@ def check_attention(fa, ref, gen) -> dict:
         (4, 2048, 2048, 16, 16, 128, torch.bfloat16, {}),
         (*TG_F32_ATTN, torch.float32, {}),
         (TG_F32_ATTN[0] // 4, *TG_F32_ATTN[1:], torch.float32, {}),
+        # the 3xTF32 kernel (f32 at head dim 64 / 128) at each mask and edge
+        # beside the f32 cases above (its dense prefill shape below): GQA with
+        # Sk off its 64-key tile, window, chunk, decode offset, cross attention
+        (2, 100, 150, 8, 2, 128, torch.float32, {}),
+        (1, 256, 256, 4, 2, 128, torch.float32, {"window": 100}),
+        (1, 256, 256, 4, 2, 128, torch.float32, {"chunk": 64}),
+        (2, 1, 128, 4, 2, 128, torch.float32, {"q_offset": 127}),
+        (2, 64, 200, 4, 2, 128, torch.float32, {"causal": False}),
+        (2, 100, 150, 8, 2, 64, torch.float32, {"q_offset": 37}),
+        (2, 33, 77, 6, 3, 128, torch.float32, {"chunk": 16, "q_offset": 5}),
+        (1, 96, 160, 8, 2, 64, torch.float32, {"window": 48, "q_offset": 64}),
     ]
     worst, by_kernel = 0.0, {}
     for B, Sq, Sk, Hq, Hkv, D, dt, kw in cases:
@@ -559,7 +589,7 @@ def check_attention(fa, ref, gen) -> dict:
                             fa, kernel, lambda: fa.flash_attention(q, k, v, **kw),
                             ref.attention_ref(q, k, v, **kw), TOL[dt])
         by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
-        if Sq == PROMPT:
+        if Sq == PROMPT and dt == torch.bfloat16:
             worst = max(worst, err)
     log(f"flash_attention: {len(cases)} cases agree ({by_kernel}; main-path max abs err "
         f"{worst:.3g})")
@@ -614,29 +644,54 @@ def check_attention(fa, ref, gen) -> dict:
               dense["bound_by"], dense["shape"], "bfloat16")
     e["first_design_ms"], e["by_shape"] = dense["first_design_ms"], shapes
 
-    # the first design on its own path: the taskgraph phase's f32 attention,
-    # a fused wave of 16 sequences (the reference's attention_blocks defaults)
-    B, S, _, Hq, Hkv, D = TG_F32_ATTN
-    q = randn(B, S, Hq, D, dtype=torch.float32, gen=gen)
-    k, v = (randn(B, S, Hkv, D, dtype=torch.float32, gen=gen) for _ in range(2))
-    first = fa.KERNELS[1]
-    got, err = check_case("attention taskgraph f32 fused wave", fa, first,
-                          lambda: fa.flash_attention(q, k, v), ref.attention_ref(q, k, v),
-                          TOL[torch.float32])
-    kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush=flush)
-    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), flush=flush)
-    lib_ms = library_ms("F.scaled_dot_product_attention",
-                        lambda: F.scaled_dot_product_attention(
-                            *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True), flush)
-    flops = 4 * D * B * Hq * S * (S + 1) // 2
-    b_ms, b_by = bound(4 * q.numel() * q.element_size(), flops, torch.float32)
-    log(f"flash_attention first design (f32, taskgraph fused wave {B}x{S}, {Hq}/{Hkv} "
-        f"heads of {D}): {kernel_ms:.4f} ms ({b_ms / kernel_ms:.1%} of the {b_by} bound "
-        f"{b_ms:.4f} ms); plain {plain_ms:.4f} ms; SDPA {lib_ms} ms; max abs err {err:.3g}")
-    e_first = entry("flash_attention (first design)", "flash_attention.cu",
-                    "src/repro/kernels/flash_attention.py:102", err, TOL[torch.float32],
-                    kernel_ms, plain_ms, lib_ms, b_ms, b_by, [B, S, Hq, Hkv, D], "float32")
-    return e, e_first
+    # f32 (3xTF32): the taskgraph phase's fused wave of 16 sequences (the
+    # reference's attention_blocks defaults) and the dense prefill shape,
+    # where single-pass TF32 (the plain version's products under
+    # allow_tf32) shows why three products are needed
+    f32_shapes = {}
+    log("flash_attention f32 (causal; first design through its raw launcher; bound: bytes "
+        "against three TF32 products a MAC at 495 TFLOP/s):")
+    for label, (B, S, Hq, Hkv, D) in (("taskgraph fused wave", (TG_F32_ATTN[0], TG_F32_ATTN[1],
+                                                                 *TG_F32_ATTN[3:])),
+                                      ("dense prefill", (TENANTS, PROMPT, 16, 2, 128))):
+        q = randn(B, S, Hq, D, dtype=torch.float32, gen=gen)
+        k, v = (randn(B, S, Hkv, D, dtype=torch.float32, gen=gen) for _ in range(2))
+        want = ref.attention_ref(q, k, v)
+        _, err = check_case(f"attention f32 {label}", fa, fa.kernel_for(torch.float32, D),
+                            lambda: fa.flash_attention(q, k, v), want, TOL[torch.float32])
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            single = (ref.attention_ref(q, k, v) - want).abs().max().item()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        del want
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush=flush)
+        first_ms = time_ms(lambda: fa.launch_kernel("flash_attention", q, k, v, True, -1, 0,
+                                                    D ** -0.5, 0), flush=flush)
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), flush=flush)
+        lib_ms = library_ms("F.scaled_dot_product_attention",
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv), flush)
+        flops = 4 * D * B * Hq * S * (S + 1) // 2
+        b_ms, b_by = bound(sum(t.numel() * t.element_size() for t in (q, k, v, q)), 3 * flops,
+                           "tf32")
+        design_line(f"{label} {B}x{S}, {Hq}/{Hkv} heads of {D}", kernel_ms, first_ms, "SDPA",
+                    lib_ms, flops, b_ms, b_by)
+        log(f"    max abs err {err:.3g} with 3xTF32 products, {single:.3g} single-pass TF32 "
+            f"(limit {TOL[torch.float32]}); plain {plain_ms:.4f} ms")
+        f32_shapes[label] = {"shape": [B, S, Hq, Hkv, D], "ms": kernel_ms,
+                             "first_design_ms": first_ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "max_abs_err": err, "single_pass_tf32_max_abs_err": single}
+        del q, k, v, qt, kt, vt
+    tg = f32_shapes["taskgraph fused wave"]
+    e_f32 = entry("flash_attention f32 (3xTF32)", "flash_attention_sm90.cu",
+                  "src/repro/kernels/flash_attention.py:102", tg["max_abs_err"],
+                  TOL[torch.float32], tg["ms"], tg["plain_ms"], tg["library_ms"], tg["bound_ms"],
+                  tg["bound_by"], tg["shape"], "float32")
+    e_f32.update(first_design_ms=tg["first_design_ms"], by_shape=f32_shapes)
+    return e, e_f32
 
 
 def check_grouped_matmul(gmm, ref, gen) -> dict:
@@ -824,7 +879,8 @@ def check_new_shapes(rms, fa, gmm, ssd, ref, gen) -> list:
     """The four kernels at the shapes the families phase gives them first:
     non-causal attention over whisper's 1500 frames and its cross-attention
     (Sq 512, Sk 1500), hymba's GQA 5 under its 1024-token window (prompts of
-    512 never reach the window), the first-design RMSNorm at hymba's d 1600,
+    512 never reach the window), the register-resident RMSNorm at hymba's d
+    1600 (prefill and decode rows, beside the first design),
     grouped matmul at llama4's 16 experts x 5120 -> 8192 (top-1, capacity
     160 at 2048 tokens) and the SSD intra-chunk kernel at hymba's 50 heads
     of 64, state 16. Each case: one counted launch of the kernel
@@ -868,24 +924,34 @@ def check_new_shapes(rms, fa, gmm, ssd, ref, gen) -> list:
         out.append(e)
         del q, k, v, qt, kt, vt
 
-    n, d = TENANTS * PROMPT, 1600
-    x, w = randn(n, d, dtype=bf16, gen=gen), randn(d, dtype=torch.float32, gen=gen)
-    kernel = rms.kernel_for(bf16, d)
-    if kernel != rms.KERNELS[1]:
-        raise AssertionError(f"rmsnorm at d {d} picks {kernel}, not the first design")
-    _, err = check_case(f"rmsnorm hymba ({n}, {d}) bf16", rms, kernel, lambda: rms.rmsnorm(x, w),
-                        ref.rmsnorm_ref(x, w), TOL[bf16])
-    kernel_ms = time_ms(lambda: rms.rmsnorm(x, w), flush=flush)
-    plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, w), flush=flush)
-    lib_ms = library_ms("F.rms_norm", lambda: F.rms_norm(x, (d,), w, 1e-6), flush)
-    b_ms, b_by = bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
-                       4 * x.numel(), torch.float32)
-    log(f"rmsnorm hymba ({n}, {d}) bf16 [{kernel}]: agrees (max abs err {err:.3g}); kernel "
-        f"{kernel_ms:.4f} ms ({b_ms / kernel_ms:.1%} of the {b_by} bound {b_ms:.4f} ms); plain "
-        f"{plain_ms:.4f} ms; F.rms_norm {lib_ms} ms")
-    out.append(entry("rmsnorm (first design) @ hymba d 1600", "rmsnorm.cu",
-                     "src/repro/kernels/rmsnorm.py:33", err, TOL[bf16], kernel_ms, plain_ms,
-                     lib_ms, b_ms, b_by, [n, d], "bfloat16"))
+    d, by_shape = 1600, {}
+    for label, n in (("prefill", TENANTS * PROMPT), ("decode", TENANTS * BATCH)):
+        x, w = randn(n, d, dtype=bf16, gen=gen), randn(d, dtype=torch.float32, gen=gen)
+        kernel = rms.kernel_for(bf16, d)
+        if kernel != rms.KERNELS[0]:
+            raise AssertionError(f"rmsnorm at d {d} picks {kernel}, not the register-resident "
+                                 f"kernel")
+        _, err = check_case(f"rmsnorm hymba {label} ({n}, {d}) bf16", rms, kernel,
+                            lambda: rms.rmsnorm(x, w), ref.rmsnorm_ref(x, w), TOL[bf16])
+        kernel_ms = time_ms(lambda: rms.rmsnorm(x, w), flush=flush)
+        first_ms = time_ms(lambda: rms.launch_kernel("rmsnorm", x, w), flush=flush)
+        plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, w), flush=flush)
+        lib_ms = library_ms("F.rms_norm", lambda: F.rms_norm(x, (d,), w, 1e-6), flush)
+        b_ms, b_by = bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
+                           4 * x.numel(), torch.float32)
+        log(f"rmsnorm hymba {label} ({n}, {d}) bf16 [{kernel}]: agrees (max abs err {err:.3g}); "
+            f"kernel {kernel_ms:.4f} ms ({b_ms / kernel_ms:.1%} of the {b_by} bound "
+            f"{b_ms:.4f} ms); first design {first_ms:.4f} ms ({b_ms / first_ms:.1%}); new / "
+            f"first {kernel_ms / first_ms:.3f}; plain {plain_ms:.4f} ms; F.rms_norm {lib_ms} ms")
+        by_shape[label] = {"shape": [n, d], "ms": kernel_ms, "first_design_ms": first_ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "max_abs_err": err}
+    pre = by_shape["prefill"]
+    e = entry("rmsnorm @ hymba d 1600", "rmsnorm_sm90.cu", "src/repro/kernels/rmsnorm.py:33",
+              pre["max_abs_err"], TOL[bf16], pre["ms"], pre["plain_ms"], pre["library_ms"],
+              pre["bound_ms"], pre["bound_by"], pre["shape"], "bfloat16")
+    e.update(first_design_ms=pre["first_design_ms"], by_shape=by_shape)
+    out.append(e)
 
     E, C, dd, ff = 16, 160, 5120, 8192
     x = randn(E, C, dd, dtype=bf16, gen=gen, scale=0.3)
@@ -1012,7 +1078,7 @@ DECODE_SYMBOLS = {"dense": ("rmsnorm_sm90_kernel",), "moe": ("rmsnorm_sm90_kerne
                   "minitron-8b": ("rmsnorm_sm90_kernel",),
                   "chameleon-34b": ("rmsnorm_sm90_kernel",),
                   "llama4-scout-17b-a16e": ("rmsnorm_sm90_kernel", "gmm_sm90_kernel"),
-                  "hymba-1.5b": ("rmsnorm_sm90_kernel", "rmsnorm_kernel"),
+                  "hymba-1.5b": ("rmsnorm_sm90_kernel",),
                   "whisper-small": ()}
 RESERVED_LIMIT = 8 << 30
 
@@ -1033,7 +1099,7 @@ def _register_decoders(server, decode) -> None:
 
 
 def serve_path(label: str, family: str, cfg, params, kernels: dict,
-               continuous: bool | None, first_designs: tuple = ()) -> dict:
+               continuous: bool | None) -> dict:
     """One model's main path: 4 tenants prefill, then decode through the
     ``RegionServer`` from 4 threads, request-level (``continuous=False``) or
     through the default server (continuous, every step a graph replay).
@@ -1041,9 +1107,8 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
     into prefill and decode); then a profiled decode round (and, for the
     request-level path, a profiled prefill). Checks what every path must
     show; the default server's path also its captures, the kernels its graph
-    replays launch, and one fixed group captured against uncaptured. The
-    first designs in ``first_designs`` are the ones this model's shapes
-    select; every other first design must launch 0 times."""
+    replays launch, and one fixed group captured against uncaptured. No
+    first design may launch."""
     from repro_torch.core import lower
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import model as M
@@ -1149,7 +1214,7 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
     log(f"{label} launches: " + "; ".join(f"{k} {in_prefill[k]} in prefill + {in_decode[k]} "
                                           f"in decode" for k in total))
     for first in FIRST_DESIGNS:
-        if total[first] and first not in first_designs:
+        if total[first]:
             raise AssertionError(f"{label}: the first design {first} launched {total[first]} "
                                  f"times on the main path")
 
@@ -1832,18 +1897,18 @@ def run_mamba(kernels, registry) -> dict:
 
 # ---------------------------------------------------------------- families
 
-# (arch, layers kept (None: all), the first designs its shapes select): the
-# reference's other seven models at full width; chameleon-34b and
-# llama4-scout-17b-a16e at cut depth (f32 params of all 48 layers take 137 GB
-# and 431 GB). Layer index 3 is llama4's global-attention layer.
+# (arch, layers kept (None: all)): the reference's other seven models at full
+# width; chameleon-34b and llama4-scout-17b-a16e at cut depth (f32 params of
+# all 48 layers take 137 GB and 431 GB). Layer index 3 is llama4's
+# global-attention layer.
 FAMILIES = (
-    ("glm4-9b", None, ()),
-    ("minicpm-2b", None, ()),
-    ("minitron-8b", None, ()),
-    ("chameleon-34b", 12, ()),
-    ("llama4-scout-17b-a16e", 4, ()),
-    ("hymba-1.5b", None, ("rmsnorm",)),
-    ("whisper-small", None, ()),
+    ("glm4-9b", None),
+    ("minicpm-2b", None),
+    ("minitron-8b", None),
+    ("chameleon-34b", 12),
+    ("llama4-scout-17b-a16e", 4),
+    ("hymba-1.5b", None),
+    ("whisper-small", None),
 )
 
 
@@ -1863,7 +1928,7 @@ def _layer_input(cfg, seed: int):
     return h, enc
 
 
-def run_family(arch: str, layers: int | None, first_designs: tuple, kernels, registry) -> dict:
+def run_family(arch: str, layers: int | None, kernels, registry) -> dict:
     """One model of the families phase: serve it (the default continuous
     server, every step a graph replay, one fixed group captured against
     uncaptured), hold its launch counts to what its shapes select, then (a)
@@ -1880,7 +1945,7 @@ def run_family(arch: str, layers: int | None, first_designs: tuple, kernels, reg
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     params = init_model(cfg)
-    run = serve_path(arch, arch, cfg, params, kernels, None, first_designs)
+    run = serve_path(arch, arch, cfg, params, kernels, None)
     pre, dec = run["prefill"], run["decode"]
     want_fa = TENANTS * _prefill_attention_calls(cfg)
     if pre["flash_attention_sm90"] != want_fa:
@@ -1902,7 +1967,6 @@ def run_family(arch: str, layers: int | None, first_designs: tuple, kernels, reg
             raise AssertionError(f"{arch}: SSD launched {pre['ssd_chunk_sm90']} times in "
                                  f"prefill (want {TENANTS * cfg.num_layers}) and "
                                  f"{dec['ssd_chunk_sm90']} in decode (want 0)")
-        need_both(run, "rmsnorm")   # the first design, at d 1600
 
     prompt, steps = run["prompts"][0], run["states"][0]["out"][:3]
     moe_ctx = {}
@@ -1970,8 +2034,7 @@ def run_family(arch: str, layers: int | None, first_designs: tuple, kernels, reg
 def run_families(kernels, registry) -> dict:
     """The families phase: each of FAMILIES in turn, the previous one freed."""
     t0 = time.perf_counter()
-    out = {arch: run_family(arch, layers, first, kernels, registry)
-           for arch, layers, first in FAMILIES}
+    out = {arch: run_family(arch, layers, kernels, registry) for arch, layers in FAMILIES}
     log(f"phase families: {time.perf_counter() - t0:.1f} s for {len(out)} models")
     return out
 
@@ -1998,7 +2061,7 @@ TASKGRAPH_RUNS = (
 # the name prefix of each in a profiler trace
 GRAPH_KERNELS = {("rmsnorm", torch.bfloat16): ("rmsnorm_sm90", "rmsnorm_sm90_kernel"),
                  ("attention", torch.bfloat16): ("flash_attention_sm90", "fa_sm90_kernel"),
-                 ("attention", torch.float32): ("flash_attention", "fa_fwd_kernel")}
+                 ("attention", torch.float32): ("flash_attention_sm90", "fa_sm90_tf32_kernel")}
 REPS = 5
 
 
@@ -3589,8 +3652,7 @@ def main() -> int:
                check_grouped_matmul(gmm, ref, gen), check_ssd(ssd, ref, gen)]
     rules = check_rules(rms, fa, gmm, ssd, ref, gen)
     for e in entries:
-        if not e["name"].endswith("(first design)"):
-            e.update(rules[e["name"]])
+        e.update(rules.get(e["name"], {}))
     entries += check_new_shapes(rms, fa, gmm, ssd, ref, gen)
     log(f"phase 2 (kernels and their backward rules) took {time.perf_counter() - t0:.1f} s")
 
@@ -3671,6 +3733,16 @@ def main() -> int:
     runs["pipeline"] = distributed["pipeline"]["launches"]
     runs["mesh train"] = distributed["mesh_train"]["launches"]
     log(f"paths pipeline and mesh train: launches {runs['pipeline']}, {runs['mesh train']}")
+    first_launched = {label: {k: counts[k] for k in FIRST_DESIGNS if counts[k]}
+                      for label, counts in runs.items()}
+    first_launched = {label: c for label, c in first_launched.items() if c}
+    if first_launched:
+        raise AssertionError(f"first designs launched on a path: {first_launched}")
+    log(f"first designs {FIRST_DESIGNS}: 0 launches on every path ({', '.join(runs)})")
+    # the f32 attention kernel shares its source (and count) with the bf16
+    # one: its own launches are the taskgraph's f32 attention runs'
+    f32_attention = sum(r["launches_in_capture"]["flash_attention_sm90"] for r in taskgraph
+                        if r["workload"].startswith("attention") and "float32" in r["workload"])
 
     for e in entries:
         src = Path(e["source"]).stem
@@ -3680,6 +3752,10 @@ def main() -> int:
         e["decode_round_replay_launches"] = {   # one profiled round, from its trace
             label: r[symbol] for label, r in replayed.items() if symbol in r}
         e["launches"] = sum(e["launches_by_path"].values())
+        if e["dtype"] == "float32" and src == "flash_attention_sm90":
+            e["launches_f32_taskgraph_capture"] = f32_attention
+            if not f32_attention > 0:
+                raise AssertionError("the f32 attention kernel never launched on the taskgraph path")
         if not e["launches"] > 0:
             raise AssertionError(f"{e['name']} never launched on the main path")
     log(f"total {time.perf_counter() - t_start:.1f} s after the device check")

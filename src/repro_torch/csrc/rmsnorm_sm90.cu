@@ -10,22 +10,26 @@
 // and each output row written once; the weight row is read once a warp.
 // At (2048, 2048) bf16 that is 16.8 MB, 5.0 us at 3.35 TB/s; qwen3's
 // qk-norm (65,536 x 128 bf16) 33.6 MB, 10.0 us; mamba2's block norm
-// (2,048 x 1,024) 8.4 MB, 2.5 us. A decode call (16 x 2048) moves 139 KB:
-// its floor is one launch and one memory round trip.
+// (2,048 x 1,024) 8.4 MB, 2.5 us; hymba's (2,048 x 1,600) 13.1 MB, 3.9 us.
+// A decode call (16 x 2048) moves 139 KB: its floor is one launch and one
+// memory round trip.
 //
 // Design: a group of lanes owns a row and holds it in registers, so there
 // is no shared-memory staging and, below 8 vectors a lane, no block
 // barrier. Each lane issues all its 16-byte loads of the row (up to 8, 128
 // bytes in flight) before the sum of squares, a shuffle reduction inside
 // the group, then scales and stores 16-byte vectors. The group is 16 lanes
-// at 16 vectors a row (d = 128 bf16: two rows a warp), else a warp, or
-// 2-8 warps with one cross-warp sum through shared memory when a row has
-// more than 256 vectors. The weight is loaded in vectors once per group and
+// at up to 16 vectors a row (d = 128 bf16: two rows a warp), else a warp,
+// or 2-8 warps with one cross-warp sum through shared memory when a row
+// has more than 256 vectors. A lane's vectors past the row's end are
+// predicated off (zeros in the sum, no store), so a row need only be a
+// whole number of vectors: hymba's d 1600 in bf16 is 200 vectors, a warp
+// of 7 or 6 vectors a lane; in f32 400, two warps. The weight is loaded in vectors once per group and
 // kept in registers while the group walks rows (a grid-stride loop, the
 // grid sized to the SMs' resident blocks; with fewer rows than SMs, as in
 // decode, a block takes fewer rows so that they spread over more SMs).
 // Vectors a lane and group width are template arguments; the wrapper sends
-// d that is a multiple of 16 vectors and at most 8192 here. (Reading the
+// d that is a multiple of one vector (8 bf16, 4 f32) and at most 8192 here. (Reading the
 // weight through L1 for each row instead, or keeping no f32 copy of the
 // row to halve the registers, measured no faster.)
 #include <cuda_bf16.h>
@@ -179,14 +183,14 @@ int launch_cfg(const void* x, const void* r, const void* w, void* out, int n, in
   return (int)cudaGetLastError();
 }
 
-// The group and vectors a lane for a row of nvec 16-byte vectors
-// (nvec a multiple of 16, at most 2048): 16 lanes at 16 vectors, else a
-// warp of up to 8 vectors a lane, else 2, 4 or 8 warps of 8.
+// The group and vectors a lane for a row of nvec 16-byte vectors (at most
+// 2048): 16 lanes at up to 16 vectors, else a warp of up to 8 vectors a
+// lane, else 2, 4 or 8 warps of 8; the last vectors of a lane predicated.
 template <typename T, typename W, bool RES>
 int launch_t(const void* x, const void* r, const void* w, void* out, int n, int d, float eps,
              cudaStream_t s) {
   const int nvec = d / (16 / (int)sizeof(T));
-  if (nvec == 16) return launch_cfg<T, W, RES, 16, 1>(x, r, w, out, n, d, 1, eps, s);
+  if (nvec <= 16) return launch_cfg<T, W, RES, 16, 1>(x, r, w, out, n, d, 1, eps, s);
   if (nvec <= 32) return launch_cfg<T, W, RES, 32, 1>(x, r, w, out, n, d, 1, eps, s);
   if (nvec <= 64) return launch_cfg<T, W, RES, 32, 2>(x, r, w, out, n, d, 1, eps, s);
   if (nvec <= 128) return launch_cfg<T, W, RES, 32, 4>(x, r, w, out, n, d, 1, eps, s);
@@ -207,14 +211,14 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. x, residual (may be null), w and
-// out contiguous and 16-byte aligned; d a multiple of 16 16-byte vectors of
-// x's dtype, at most 8192. Returns cudaGetLastError() after the launch (0 on
+// out contiguous and 16-byte aligned; d a multiple of one 16-byte vector of
+// x's dtype (8 bf16, 4 f32), at most 8192. Returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int rmsnorm_sm90_launch(const void* x, const void* residual, const void* w,
                                    void* out, int n_rows, int d, float eps, int x_dtype,
                                    int w_dtype, void* stream) {
   const int vec = x_dtype == 0 ? 4 : 8;
-  if (n_rows < 1 || d < 16 * vec || d % (16 * vec) || d > 8192 || x_dtype < 0 || x_dtype > 1 ||
+  if (n_rows < 1 || d < vec || d % vec || d > 8192 || x_dtype < 0 || x_dtype > 1 ||
       w_dtype < 0 || w_dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w) || !aligned16(out) || (residual && !aligned16(residual)))

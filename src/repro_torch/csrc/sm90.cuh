@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (flash_attention_sm90.cu, grouped_matmul_sm90.cu, ssd_chunk_sm90.cu):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors, instructions
-// and proxy fence, and the host-side encoding of a TMA tensor map.
+// and proxy fence, the 3xTF32 split and its TF32 wgmma forms, a named
+// barrier, and the host-side encoding of a TMA tensor map.
 //
 // Every operand tile lives in shared memory in the 128-byte swizzled layout
 // that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: a box of 64 bf16 (128
@@ -203,6 +204,123 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
+// ------------------------------------------------------------------ TF32
+// f32 products on the tensor cores at f32 accuracy ("3xTF32"): each f32
+// operand splits into hi = tf32(a) and lo = tf32(a - hi), and a product
+// accumulates lo*hi' + hi*lo' + hi*hi' in f32 (ssd_chunk_sm90.cu,
+// flash_attention_sm90.cu). A TF32 wgmma reads B, and A when it comes from
+// shared memory, only K-major: rows of 32 values (128 bytes) in the
+// 128-byte swizzle, a k-step of 8 values is 32 bytes along the row.
+
+// f32 -> TF32 rounded to nearest, ties away from zero: cvt.rna.tf32.f32's
+// rounding, in two integer operations (finite inputs).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32 (hi carries 11 significant bits, lo the next 11).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// An A fragment of m64nNk8 TF32 (warp w of the warpgroup owns rows
+// 16 w .. 16 w + 15; lane = 4 g + t): a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4), each split into hi and lo.
+struct Frag {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ Frag(float a0, float a1, float a2, float a3) {
+    split(a0, hi[0], lo[0]);
+    split(a1, hi[1], lo[1]);
+    split(a2, hi[2], lo[2]);
+    split(a3, hi[3], lo[3]);
+  }
+};
+
+// Offset, in floats, of (row r, k) in a K-major wgmma plane: rows of 32 k
+// (128 bytes) with the 128-byte swizzle, blocks of `rows` rows per 32 k.
+__device__ __forceinline__ int plane_at(int r, int k, int rows) {
+  const int kk = k % 32;
+  return (k / 32) * rows * 32 + r * 32 + (((kk / 4) ^ (r % 8)) * 4) + kk % 4;
+}
+
+// D += A B, m64n64k8 TF32 wgmma: A from registers, B (8 x 64) K-major from
+// shared memory (descriptor).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// acc += a · (the 8 x 64 K-major slice at byte offset `off` of planes
+// ph / pl) at f32 accuracy: the small terms first.
+__device__ __forceinline__ void wgmma3(float (&acc)[32], const Frag& a, const uint8_t* ph,
+                                       const uint8_t* pl, int off) {
+  fence_regs(acc);
+  wgmma_fence();
+  wgmma_tf32(acc, a.lo, desc_sw128(ph + off, 16, 1024));
+  wgmma_tf32(acc, a.hi, desc_sw128(pl + off, 16, 1024));
+  wgmma_tf32(acc, a.hi, desc_sw128(ph + off, 16, 1024));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// D += A B, m64n64k8 TF32 wgmma: A (64 x 8) and B (8 x 64), both K-major
+// from shared memory (descriptors).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// D += A B, m64n128k8 TF32 wgmma: A from registers (a Frag half), B (8 x 128)
+// K-major from shared memory (descriptor).
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// A named barrier of `n` threads (a multiple of 32), id 1..15: the consumer
+// warpgroups of a warp-specialised block sync without the producer.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -231,11 +349,13 @@ inline EncodeTiledFn encode_tiled_fn() {
 constexpr int ERR_NO_ENCODER = 9001;   // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_ENCODE = 9002;       // the driver refused the tensor map
 
-// A bf16 tensor map of `rank` dims (innermost first, `dims`), with byte
-// strides of dims 1.. in `strides`, loaded in boxes of `box`, 128-byte
-// swizzled, zeros past every edge. Returns 0 or one of the codes above.
-inline int encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                       const uint64_t* strides, const uint32_t* box) {
+// A tensor map of `rank` dims (innermost first, `dims`) of elements of
+// `type`, with byte strides of dims 1.. in `strides`, loaded in boxes of
+// `box` with `swizzle`, zeros past every edge. Returns 0 or one of the codes
+// above.
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                        const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                        CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return ERR_NO_ENCODER;
   cuuint64_t gdim[5], gstride[4];
@@ -246,11 +366,17 @@ inline int encode_bf16(CUtensorMap* map, const void* base, int rank, const uint6
     estride[i] = 1;
     if (i + 1 < rank) gstride[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                        gdim, gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), gdim, gstride, bdim, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+// A bf16 tensor map, 128-byte swizzled (encode_tiled's other arguments).
+inline int encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -58,7 +58,11 @@
 
 namespace {
 
+using sm90::Frag;
+using sm90::plane_at;
 using sm90::smem_u32;
+using sm90::split;
+using sm90::wgmma3;
 
 constexpr int NT = 512;                 // 16 warps: four warpgroups
 constexpr int QP = 128;                 // chunk steps a tile (Q zero-filled up to it)
@@ -81,13 +85,6 @@ __device__ __forceinline__ int at(int row, int col, int pitch) {
 // Offset of column c0 + u (c0 a multiple of 8, u < 8) in a row of swizzle h.
 __device__ __forceinline__ int col_at(int c0, int u, int h) {
   return (c0 ^ (h & 24)) + (u ^ (h & 4));
-}
-
-// Offset, in floats, of (row r, k) in a K-major wgmma plane: rows of 32 k
-// (128 bytes) with the 128-byte swizzle, blocks of `rows` rows per 32 k.
-__device__ __forceinline__ int plane_at(int r, int k, int rows) {
-  const int kk = k % 32;
-  return (k / 32) * rows * 32 + r * 32 + (((kk / 4) ^ (r % 8)) * 4) + kk % 4;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -116,31 +113,6 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch, int rows_p, con
   }
 }
 
-// f32 -> TF32 rounded to nearest, ties away from zero: cvt.rna.tf32.f32's
-// rounding, in two integer operations (finite inputs).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32 (hi carries 11 significant bits, lo the next 11).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// An A fragment of m64nNk8 TF32 (warp w of the warpgroup owns rows
-// 16 w .. 16 w + 15; lane = 4 g + t): a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4), each split into hi and lo.
-struct Frag {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ Frag(float a0, float a1, float a2, float a3) {
-    split(a0, hi[0], lo[0]);
-    split(a1, hi[1], lo[1]);
-    split(a2, hi[2], lo[2]);
-    split(a3, hi[3], lo[3]);
-  }
-};
-
 // 2^x, one MUFU operation (relative error ~2^-22; results below 2^-126 flush to 0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -150,37 +122,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// D += A B, m64n64k8 TF32 wgmma: A from registers, B (8 x 64) K-major from
-// shared memory (descriptor).
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// acc += a · (the 8 x 64 K-major slice at byte offset `off` of planes
-// ph / pl) at f32 accuracy: the small terms first.
-__device__ __forceinline__ void wgmma3(float (&acc)[32], const Frag& a, const uint8_t* ph,
-                                       const uint8_t* pl, int off) {
-  sm90::fence_regs(acc);
-  sm90::wgmma_fence();
-  wgmma_tf32(acc, a.lo, sm90::desc_sw128(ph + off, 16, 1024));
-  wgmma_tf32(acc, a.hi, sm90::desc_sw128(pl + off, 16, 1024));
-  wgmma_tf32(acc, a.hi, sm90::desc_sw128(ph + off, 16, 1024));
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
 }
 
 // Accumulator value e of an m64n64 wgmma sits at row 16 w + g + 8 ((e / 2) % 2)

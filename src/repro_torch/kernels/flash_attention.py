@@ -24,7 +24,8 @@ from .ref import attention_bwd_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 SM90_HEAD_DIMS = (64, 128)
-#: The kernels, by source: TMA + wgmma (bf16, head dim 64 / 128) and SIMT.
+#: The kernels, by source: TMA + wgmma (head dim 64 / 128; bf16, and f32 as
+#: three TF32 products) and SIMT (head dims 16 and 32).
 KERNELS = ("flash_attention_sm90", "flash_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,11 +47,12 @@ def reset_launches() -> None:
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call with this dtype and head dim launches.
 
-    bf16 at head dim 64 or 128 takes the TMA + wgmma kernel. f32 stays on
-    the SIMT kernel, since its parity checks need 2e-5, which TF32 products
-    cannot give, and so do head dims 16 and 32.
+    Head dim 64 or 128 takes the TMA + wgmma kernel: bf16 products in bf16,
+    f32 products as three TF32 products each (3xTF32), since the f32
+    parity checks need 2e-5, which single-pass TF32 cannot give. Head dims
+    16 and 32 take the SIMT kernel.
     """
-    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+    if dtype in _DTYPES and head_dim in SM90_HEAD_DIMS:
         return KERNELS[0]
     return KERNELS[1]
 

@@ -23,8 +23,8 @@ from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 MAX_D = 8192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: The kernels, by source: rows held in registers (d a multiple of 16
-#: 16-byte vectors, at most MAX_D, 16-byte aligned tensors) and the first
+#: The kernels, by source: rows held in registers (d a multiple of one
+#: 16-byte vector, at most MAX_D, 16-byte aligned tensors) and the first
 #: design (any d and alignment).
 KERNELS = ("rmsnorm_sm90", "rmsnorm")
 
@@ -45,12 +45,13 @@ def reset_launches() -> None:
 
 def kernel_for(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
     """The kernel a CUDA call with x of this dtype and rows of length d
-    launches: d a multiple of 16 16-byte vectors (128 bf16, 64 f32) and at
+    launches: d a multiple of one 16-byte vector (8 bf16, 4 f32) and at
     most MAX_D, with x, w and residual on 16-byte boundaries (``aligned``),
-    takes the register-resident kernel (every width of the served models:
-    128, 1024, 2048); other calls the first design."""
+    takes the register-resident kernel (every width of the served models,
+    hymba's 1600 included); odd d, d past MAX_D and unaligned tensors the
+    first design."""
     vec = 16 // dtype.itemsize
-    if aligned and 0 < d <= MAX_D and d % (16 * vec) == 0:
+    if aligned and 0 < d <= MAX_D and d % vec == 0:
         return KERNELS[0]
     return KERNELS[1]
 

@@ -12,15 +12,17 @@ under ``torch.func.vmap`` too, and the reduced models of all ten configs
 are run with the kernels and with the plain versions; the MoE layer at
 full width gives the same bits on every run. The kernels are also held at
 the shapes the other seven models give them (whisper's non-causal and
-cross-attention over 1500 frames, hymba's windowed GQA 5, the first-design
-RMSNorm at d 1600, llama4's grouped matmul, hymba's SSD), with one
+cross-attention over 1500 frames, hymba's windowed GQA 5, the
+register-resident RMSNorm at d 1600, llama4's grouped matmul, hymba's SSD),
+with one
 full-width hymba block and one whisper decoder block in bf16 (relative L2
 2e-2), and a captured whisper decode step bitwise equal to an uncaptured
 one. Each
 attention, grouped-matmul, RMSNorm and SSD case of the redesigned kernels
-also checks that the kernel ``kernel_for`` picks (TMA + wgmma, rows in
-registers, 3xTF32 tensor cores at the shapes they take; the first design
-otherwise) is the one whose count rose. Regions replayed from a captured
+also checks that the kernel ``kernel_for`` picks (TMA + wgmma in bf16
+and, as 3xTF32 products, in f32; rows in registers; 3xTF32 tensor cores
+at the shapes they take; the first design otherwise) is the one whose
+count rose. Regions replayed from a captured
 CUDA graph (``lower_tdg(jit=True)``) must equal the uncaptured replay and
 eager, capture once per buffer signature, raise when a payload syncs the
 host, return outputs the next replay leaves alone, and launch the RMSNorm
@@ -76,7 +78,14 @@ def _one_launch_of(mod, kernel, run):
     # edges of the TMA + wgmma kernel (bf16): decode-shaped, a window, Sk off
     # its 128-key tile at both head dims
     (2, 1, 128, 4, 2, 128, {"q_offset": 127}), (1, 256, 256, 4, 2, 128, {"window": 100}),
-    (2, 200, 200, 4, 2, 64, {}), (2, 200, 200, 4, 2, 128, {})])
+    (2, 200, 200, 4, 2, 64, {}), (2, 200, 200, 4, 2, 128, {}),
+    # f32 takes the same kernel as 3xTF32 products: the dense prefill shape,
+    # the taskgraph's fused wave, GQA off its 64-key tile under a chunk and an
+    # offset, a window with an offset; head dims 16 and 32 the first design
+    (4, 512, 512, 16, 2, 128, {}), (16, 128, 128, 4, 4, 64, {}),
+    (2, 33, 77, 6, 3, 128, {"chunk": 16, "q_offset": 5}),
+    (1, 96, 160, 8, 2, 64, {"window": 48, "q_offset": 64}),
+    (2, 100, 100, 4, 2, 32, {}), (2, 24, 24, 4, 2, 16, {})])
 def test_flash_attention(dtype, B, Sq, Sk, Hq, Hkv, D, kw):
     g = torch.Generator("cuda").manual_seed(0)
     q = _randn(g, B, Sq, Hq, D, dtype=dtype)
@@ -145,8 +154,15 @@ def test_ssd(S, H, P, G, N, chunk):
     ((6, 8192), torch.float32, torch.float32, True),             # 8 warps a row
     ((8, 8192), torch.bfloat16, torch.float32, True),
     ((11, 64), torch.float32, torch.float32, False),
-    ((33, 1000), torch.float32, torch.float32, False),           # the first design
-    ((5, 16), torch.float32, torch.float32, True)])
+    ((33, 1000), torch.float32, torch.float32, False),           # whole vectors, not 16
+    ((5, 16), torch.float32, torch.float32, True),
+    ((2048, 1600), torch.bfloat16, torch.float32, False),        # hymba: 7 or 6 vectors a lane
+    ((16, 1600), torch.bfloat16, torch.float32, True),
+    ((64, 1600), torch.float32, torch.float32, True),            # 2 warps, 400 vectors
+    ((33, 1000), torch.bfloat16, torch.bfloat16, True),
+    ((5, 16), torch.bfloat16, torch.float32, False),
+    ((7, 1001), torch.float32, torch.float32, False),            # odd d: the first design
+    ((7, 1001), torch.bfloat16, torch.float32, True)])
 def test_rmsnorm_kernel_choice(shape, xdt, wdt, residual):
     g = torch.Generator("cuda").manual_seed(0)
     x, w = _randn(g, *shape, dtype=xdt), _randn(g, shape[-1], dtype=wdt)
@@ -326,10 +342,10 @@ def test_flash_attention_at_the_new_models_shapes(B, Sq, Sk, Hq, Hkv, kw):
                                atol=TOL[bf16], rtol=TOL[bf16])
 
 
-def test_rmsnorm_at_hymba_width_takes_the_first_design():
+def test_rmsnorm_at_hymba_width_takes_the_register_resident_kernel():
     g = torch.Generator("cuda").manual_seed(0)
     x, w = _randn(g, 2048, 1600, dtype=torch.bfloat16), _randn(g, 1600)
-    got = _one_launch_of(rms, rms.KERNELS[1], lambda: rms.rmsnorm(x, w))
+    got = _one_launch_of(rms, rms.KERNELS[0], lambda: rms.rmsnorm(x, w))
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(),
                                atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
 
@@ -375,19 +391,21 @@ def _full_width_layer(arch):
 
 
 def test_hymba_layer_kernels_match_plain_versions():
-    """One full-width hymba block (attention ∥ SSM, the first-design
+    """One full-width hymba block (attention ∥ SSM, the register-resident
     RMSNorm at d 1600) on 2 x 512 tokens, bf16: relative L2 <= 2e-2."""
     from repro_torch.models import transformer as T
 
     cfg, block, g = _full_width_layer("hymba-1.5b")
     x = _randn(g, 2, 512, cfg.d_model, dtype=torch.bfloat16)
     pos = torch.arange(512, device="cuda", dtype=torch.int32)[None].expand(2, 512)
-    before = rms.launches_by_kernel[rms.KERNELS[1]], ssd_scan.launches
+    before = rms.launches_by_kernel[rms.KERNELS[0]], ssd_scan.launches
+    first = rms.launches_by_kernel[rms.KERNELS[1]]
     with torch.no_grad():
         got, _, _ = T.block_apply(block, cfg, x, pos, layer_idx=0)
         with registry.kernel_mode_scope("ref"):
             want, _, _ = T.block_apply(block, cfg, x, pos, layer_idx=0)
-    assert rms.launches_by_kernel[rms.KERNELS[1]] > before[0] and ssd_scan.launches > before[1]
+    assert rms.launches_by_kernel[rms.KERNELS[0]] > before[0] and ssd_scan.launches > before[1]
+    assert rms.launches_by_kernel[rms.KERNELS[1]] == first
     assert torch.isfinite(got.float()).all() and _rel_l2(got, want) <= 2e-2
 
 
@@ -531,7 +549,7 @@ def test_outputs_survive_the_next_replay():
     ("attention", {"n_seqs": 8, "seq": 256, "heads": 8, "head_dim": 128, "nb": 4,
                    "dtype": torch.bfloat16}, fa, "flash_attention_sm90", "fa_sm90_kernel"),
     ("attention", {"n_seqs": 8, "seq": 128, "heads": 4, "head_dim": 64, "nb": 4},
-     fa, "flash_attention", "fa_fwd_kernel")])
+     fa, "flash_attention_sm90", "fa_sm90_tf32_kernel")])
 def test_kernels_launch_inside_the_captured_graph(name, sizes, mod, kernel, symbol):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

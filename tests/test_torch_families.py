@@ -210,15 +210,18 @@ SM90_SSD, _ = ssd_scan.KERNELS
     ("minitron-8b", [4096], []),
     ("chameleon-34b", [8192, 128], []),           # and the qk-norm over head dim 128
     ("llama4-scout-17b-a16e", [5120], []),
-    ("hymba-1.5b", [3200], [1600]),                # the gated SSM norm; d_model 1600
+    ("hymba-1.5b", [3200, 1600], []),              # the gated SSM norm; d_model 1600
     ("whisper-small", [], [])])                    # LayerNorm only: plain torch
 def test_kernel_choice_at_the_new_models_shapes(arch, rms_widths, first_rms):
-    """bf16 as served. hymba's d_model 1600 is not a multiple of 128 bf16
-    values: its block norms take the first-design RMSNorm on purpose."""
+    """bf16 as served. hymba's d_model 1600 (200 16-byte vectors, not a
+    multiple of 16 of them) takes the register-resident RMSNorm too: no
+    model's shapes reach a first design."""
     cfg = get_config(arch)
     bf16 = torch.bfloat16
     assert fa.kernel_for(bf16, cfg.head_dim) == SM90_FA
+    assert fa.kernel_for(torch.float32, cfg.head_dim) == SM90_FA    # the f32 parity runs
     assert [rms.kernel_for(bf16, d) for d in rms_widths] == [SM90_RMS] * len(rms_widths)
+    assert [rms.kernel_for(torch.float32, d) for d in rms_widths] == [SM90_RMS] * len(rms_widths)
     assert [rms.kernel_for(bf16, d) for d in first_rms] == [FIRST_RMS] * len(first_rms)
     model = M._skeleton(cfg)
     widths = {m.scale.shape[0] for m in model.modules() if isinstance(m, L.RMSNorm)}

@@ -355,7 +355,7 @@ class TestKernelChoice:
         (torch.bfloat16, 64, SM90_FA), (torch.bfloat16, 128, SM90_FA),
         (torch.bfloat16, 16, FIRST_FA), (torch.bfloat16, 32, FIRST_FA),
         (torch.float32, 16, FIRST_FA), (torch.float32, 32, FIRST_FA),
-        (torch.float32, 64, FIRST_FA), (torch.float32, 128, FIRST_FA)])
+        (torch.float32, 64, SM90_FA), (torch.float32, 128, SM90_FA)])
     def test_attention(self, dtype, head_dim, kernel):
         assert fa.kernel_for(dtype, head_dim) == kernel
 
@@ -395,7 +395,8 @@ SM90_SSD, FIRST_SSD = ssd_scan.KERNELS
 class TestNormAndSSDKernelChoice:
     """The RMSNorm and SSD wrappers pick the register-resident and the
     tensor-core kernel by dtype, shape and 16-byte alignment, for every
-    served shape."""
+    served shape: RMSNorm at any d that is whole 16-byte vectors up to
+    MAX_D; odd d, wider d and unaligned tensors take the first design."""
 
     @pytest.mark.parametrize("dtype,d,kernel", [
         (torch.bfloat16, 128, SM90_RMS), (torch.bfloat16, 1024, SM90_RMS),
@@ -403,9 +404,14 @@ class TestNormAndSSDKernelChoice:
         (torch.bfloat16, 8192, SM90_RMS), (torch.float32, 64, SM90_RMS),
         (torch.float32, 128, SM90_RMS), (torch.float32, 2048, SM90_RMS),
         (torch.float32, 8192, SM90_RMS),
-        (torch.float32, 1000, FIRST_RMS), (torch.float32, 16, FIRST_RMS),
-        (torch.bfloat16, 1000, FIRST_RMS), (torch.bfloat16, 64, FIRST_RMS),
-        (torch.bfloat16, 192, FIRST_RMS), (torch.bfloat16, 16384, FIRST_RMS)])
+        (torch.float32, 1000, SM90_RMS), (torch.float32, 16, SM90_RMS),
+        (torch.bfloat16, 1000, SM90_RMS), (torch.bfloat16, 64, SM90_RMS),
+        (torch.bfloat16, 192, SM90_RMS), (torch.bfloat16, 16384, FIRST_RMS),
+        (torch.bfloat16, 1600, SM90_RMS), (torch.float32, 1600, SM90_RMS),   # hymba
+        (torch.float32, 4, SM90_RMS), (torch.bfloat16, 8, SM90_RMS),       # one vector
+        (torch.bfloat16, 1001, FIRST_RMS), (torch.float32, 1001, FIRST_RMS),
+        (torch.bfloat16, 4, FIRST_RMS), (torch.float32, 16384, FIRST_RMS),
+        (torch.float32, 8196, FIRST_RMS)])
     def test_rmsnorm(self, dtype, d, kernel):
         assert rms.kernel_for(dtype, d) == kernel
 

@@ -1026,7 +1026,9 @@ def device_profile(label: str, fn, tries: int = 1) -> dict:
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name: dict[str, list] = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # a record_function range (a program span) also shows on the
+            # device's row as a user annotation over its kernels: not an op
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
                 row = by_name.setdefault(e.name, [0, 0.0])
                 row[0] += 1
                 row[1] += e.time_range.elapsed_us()
@@ -1184,10 +1186,7 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
         round_ms, _ = _median_ms(decode_round)
         profiled = device_profile(f"{label} decode round ({TENANTS} tenants x batch "
                                   f"{BATCH}, graph replays)", decode_round, tries=3)
-        parts = None
-        if server.continuous:   # the second call, with the allocator's blocks cached
-            captured_step_parts(server, params, states)
-            parts = captured_step_parts(server, params, states)
+        parts = step_parts(decode_round) if server.continuous else None
     finally:
         server.close()
 
@@ -1205,11 +1204,12 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
         f"pool {stats['pool']}; intern {stats['intern']}; buckets "
         f"{stats['buckets']['boundaries']}")
     log(f"{label} latency: p50 {m['latency']['p50_s'] * 1e3:.2f} ms  p99 "
-        f"{m['latency']['p99_s'] * 1e3:.2f} ms; graphs: {graphs['captures']} captures in "
+        f"{m['latency']['p99_s'] * 1e3:.2f} ms; graphs: {graphs['captures']} captures "
+        f"({graphs['evictions']} evicted) in "
         f"{graphs['capture_ms']:.1f} ms; a warm decode round of {TENANTS} (median of "
         f"{REPS}) {round_ms:.2f} ms ({TENANTS * BATCH / round_ms * 1e3:.1f} tok/s)")
     if parts:
-        log(f"{label} one captured step of {TENANTS}, host ms by part: "
+        log(f"{label} a captured step of {TENANTS}, mean host ms by span over two rounds: "
             + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     log(f"{label} launches: " + "; ".join(f"{k} {in_prefill[k]} in prefill + {in_decode[k]} "
                                           f"in decode" for k in total))
@@ -1293,48 +1293,26 @@ def serve_path(label: str, family: str, cfg, params, kernels: dict,
                         "step_host_ms": parts}}
 
 
-def captured_step_parts(server, params, states) -> dict | None:
-    """One coalesced step of all tenants through the server's batched
-    ``GraphReplay``, its parts timed one by one on the host (keying the
-    graph, copying the inputs in, launching the graph, waiting for it,
-    copying the packed outputs out and slicing them), with the graph's
-    device time from CUDA events. None if that graph is not held."""
-    from torch.utils import _pytree as pytree
-    from repro_torch.core import lower
+def step_parts(decode_round) -> dict:
+    """Mean host ms of a served step and of its parts (keying the graph,
+    copying the inputs in, launching the graph, waiting for it, copying the
+    packed outputs out and slicing them), from the program's spans over two
+    decode rounds."""
+    from repro_torch.core import spans
 
-    tenants = [server.tenant(f"tenant{i}") for i in range(TENANTS)]
-    canon = [{t.slot_map[k]: v for k, v in _decode_request(params, st).items()}
-             for t, st in zip(tenants, states)]
-    slots = sorted(canon[0])      # as the server's _run_batched_fused builds its call
-    shared = frozenset(s for s in slots if all(c[s] is canon[0][s] for c in canon[1:]))
-    args = {"per_req": tuple({s: c[s] for s in slots if s not in shared} for c in canon),
-            "shared": {s: canon[0][s] for s in shared}}
-    replay = next(e.fn for e in server.pool.entries() if e.kind == "batched")
-    if not len(replay):
-        return None
-    torch.cuda.synchronize()
-    t = [time.perf_counter()]
-    leaves, spec = pytree.tree_flatten(args)
-    entry = replay._graphs.get((str(spec), lower._graph_key(leaves)))
-    t.append(time.perf_counter())
-    if entry is None:
-        return None
-    torch._foreach_copy_(entry.static_in, [leaves[i] for i in entry.in_index])
-    t.append(time.perf_counter())
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    entry.graph.replay()
-    end.record()
-    t.append(time.perf_counter())
-    torch.cuda.synchronize()
-    t.append(time.perf_counter())
-    entry.outputs({dt: buf.clone() for dt, buf in entry.flat.items()})
-    torch.cuda.synchronize()
-    t.append(time.perf_counter())
-    names = ("key", "copy in", "launch", "wait", "copy out + slice")
-    parts = {k: (b - a) * 1e3 for k, a, b in zip(names, t, t[1:])}
-    parts["graph device (events)"] = start.elapsed_time(end)
-    parts["input leaves"] = float(len(leaves))
+    spans.enable()
+    try:
+        decode_round()
+        decode_round()
+        recs = spans.snapshot()
+    finally:
+        spans.disable()
+    parts = {}
+    for name in ("replay.key", "replay.copy_in", "replay.launch", "step.wait",
+                 "replay.copy_out", "step"):
+        took = [r["t1"] - r["t0"] for r in recs if r["name"] == name]
+        if took:
+            parts[name] = 1e3 * sum(took) / len(took)
     return parts
 
 

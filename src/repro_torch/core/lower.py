@@ -53,6 +53,7 @@ from . import fuse as _fuse
 # Defined in costmodel (as the reference defines it there) and re-exported
 # here, where every AotExecutable captures it.
 from .costmodel import capture_cost_analysis as _capture_cost_analysis
+from .spans import span
 from . import schedule as _schedule
 from .tdg import TDG, structure_signature
 
@@ -284,15 +285,20 @@ class GraphReplay:
 
     def __call__(self, buffers: Mapping[str, Any]) -> dict:
         buffers = dict(buffers)
-        leaves, spec = pytree.tree_flatten(buffers)
-        if not any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves):
+        with span("replay.key") as keying:
+            leaves, spec = pytree.tree_flatten(buffers)
+            keying.set(leaves=len(leaves))
+            cuda = any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves)
+            if cuda:
+                donated = self._donated_leaves(buffers)
+                key = (str(spec), _graph_key(leaves, donated))
+        if not cuda:
             return self.fn(buffers)
-        donated = self._donated_leaves(buffers)
-        key = (str(spec), _graph_key(leaves, donated))
         with self._lock:
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._graphs[key] = self._capture(leaves, spec, donated)
+                with span("replay.capture", region=self.name[:128], leaves=len(leaves)):
+                    entry = self._graphs[key] = self._capture(leaves, spec, donated)
                 while len(self._graphs) > _GRAPH_CAP:
                     torch.cuda.synchronize()
                     self._graphs.popitem(last=False)
@@ -304,10 +310,12 @@ class GraphReplay:
                 stream.wait_stream(self._last_stream)   # the pool's last user first
             self._last_stream = stream
             if entry.in_index:
-                torch._foreach_copy_(entry.static_in, [leaves[i] for i in entry.in_index])
-            entry.graph.replay()
-            fresh = {dt: buf.clone() for dt, buf in entry.flat.items()}
-        return entry.outputs(fresh)
+                with span("replay.copy_in"):
+                    torch._foreach_copy_(entry.static_in, [leaves[i] for i in entry.in_index])
+            with span("replay.launch"):
+                entry.graph.replay()
+            with span("replay.copy_out"):
+                return entry.outputs({dt: buf.clone() for dt, buf in entry.flat.items()})
 
     def _capture(self, leaves: list, spec, donated: list | None) -> _Captured:
         t0 = time.perf_counter()

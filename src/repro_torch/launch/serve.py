@@ -24,7 +24,8 @@ run's seed (the conv frontend is a stub, as in the reference).
   run-to-completion dispatcher) into one ``torch.func.vmap``-batched
   replay, each step replayed from a CUDA graph on the card. ``--tiers``
   and ``--tenant-rate`` set the tenants' QoS tiers and rate limits;
-  ``--trace-out`` writes the per-step trace ring as JSON.
+  ``--trace-out`` records the program's spans (``core.spans``) from the
+  first prefill and writes them beside the per-step trace ring as JSON.
 
       PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
           --server --tenants 4
@@ -62,6 +63,7 @@ import time
 import torch
 
 from ..configs import ARCHS, get_config, reduced
+from ..core import spans
 from ..core.serialize import TaskFnRegistry
 from ..kernels import flash_attention as _fa
 from ..kernels import moe_gmm as _gmm
@@ -275,7 +277,7 @@ def _run_server(args, cfg, params, device) -> int:
     print(f"graphs:  {stats['graphs']}")
     if args.trace_out:
         server.dump_trace(args.trace_out)
-        print(f"trace ring written to {args.trace_out}")
+        print(f"trace ring and spans written to {args.trace_out}")
     _print_kernels()
     for i in (0, args.tenants - 1):
         gen = torch.stack(states[i]["out"], dim=1)
@@ -427,7 +429,8 @@ def main(argv=None) -> int:
                          "in req/s (0 = unlimited)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="[--server/--cluster] dump the execution-pattern trace "
-                         "ring(s) to PATH as JSON after the run")
+                         "ring(s) to PATH as JSON after the run (--server: with "
+                         "the program's spans)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -437,7 +440,12 @@ def main(argv=None) -> int:
         if args.cluster is not None or args.workers:
             return _run_cluster(args, cfg, params, device)
         if args.server:
-            return _run_server(args, cfg, params, device)
+            if args.trace_out:
+                spans.enable()
+            try:
+                return _run_server(args, cfg, params, device)
+            finally:
+                spans.disable()
         return _run_single_stream(args, cfg, params, device)
 
 

@@ -27,6 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.spans import span
 from . import layers as L
 from . import ssm as S
 from . import transformer as T
@@ -318,14 +319,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int):
     """Process the prompt (and, for encdec, ``batch["frames"]``); returns
-    (last-token logits, caches, next_pos)."""
+    (last-token logits, caches, next_pos). Its ``prefill`` span times the
+    host's enqueue of the work, not the card's."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
-    caches = init_caches(cfg, B, max_len, tokens.device)
-    h, _, caches = hidden_states(params, cfg, tokens, enc_out=_enc_out(params, cfg, batch),
-                                 mode="prefill", caches=caches)
-    logits = _logits(params, cfg, h[:, -1:])
-    return logits, caches, torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
+    with span("prefill", batch=B, length=Sq):
+        with span("prefill.caches"):
+            caches = init_caches(cfg, B, max_len, tokens.device)
+        h, _, caches = hidden_states(params, cfg, tokens, enc_out=_enc_out(params, cfg, batch),
+                                     mode="prefill", caches=caches)
+        logits = _logits(params, cfg, h[:, -1:])
+        return logits, caches, torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
 
 
 def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,

@@ -75,6 +75,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import os
 import threading
 import time
@@ -87,6 +88,8 @@ from torch.utils import _pytree as pytree
 from ..core import costmodel as _costmodel
 from ..core import lower as _lower
 from ..core import serialize as _serialize
+from ..core import spans as _spans
+from ..core.spans import span
 from ..core.tdg import TDG, buffers_signature, structure_signature
 from ..kernels import registry as _kreg
 from ..sharding import replay as _shreplay
@@ -186,11 +189,12 @@ class _Request:
     (a request with ``steps > 1`` is a resident stream whose future resolves
     with the FINAL step's outputs)."""
 
-    __slots__ = ("tenant", "buffers", "canon_buffers", "key", "future",
+    __slots__ = ("rid", "tenant", "buffers", "canon_buffers", "key", "future",
                  "t_submit", "served_aot", "deadline", "steps", "steps_done")
 
-    def __init__(self, tenant: Tenant, buffers: dict, canon_buffers: dict,
+    def __init__(self, rid: int, tenant: Tenant, buffers: dict, canon_buffers: dict,
                  key: tuple, deadline: float | None = None, steps: int = 1):
+        self.rid = rid                 # the server's request id, in its spans' args
         self.tenant = tenant
         self.buffers = buffers
         self.canon_buffers = canon_buffers
@@ -281,6 +285,7 @@ class RegionServer:
         self.metrics = ServerMetrics()
         self._tenants: dict[str, Tenant] = {}
         self._queue: collections.deque[_Request] = collections.deque()
+        self._rids = itertools.count(1)
         self._cv = threading.Condition()
         self._closed = False
         self._started = False
@@ -457,12 +462,14 @@ class RegionServer:
         if missing:
             raise KeyError(f"request for tenant {tenant_name!r} is missing "
                            f"input slots {missing}")
-        buffers = dict(buffers)
-        canon = {tenant.slot_map[k]: v for k, v in buffers.items()
-                 if k in tenant.slot_map}
-        key = (tenant.sig, tenant.payload_ids, buffers_signature(canon),
-               tenant.kernel_mode)
-        return _Request(tenant, buffers, canon, key, deadline=deadline, steps=steps)
+        rid = next(self._rids)
+        with span("submit.key", rid=rid):
+            buffers = dict(buffers)
+            canon = {tenant.slot_map[k]: v for k, v in buffers.items()
+                     if k in tenant.slot_map}
+            key = (tenant.sig, tenant.payload_ids, buffers_signature(canon),
+                   tenant.kernel_mode)
+        return _Request(rid, tenant, buffers, canon, key, deadline=deadline, steps=steps)
 
     def _waiting_locked(self) -> int:
         """Admitted-but-not-resident requests: the raw queue plus the class
@@ -677,12 +684,19 @@ class RegionServer:
             "intern": _lower.intern_stats(),
             "graphs": {"captures": sum(r.captures for r in replays),
                        "capture_ms": 1e3 * sum(r.capture_seconds for r in replays),
-                       "held": sum(len(r) for r in replays)},
+                       "held": sum(len(r) for r in replays),
+                       "evictions": sum(r.evictions for r in replays)},
         }
 
     def dump_trace(self, path: str) -> dict:
-        """Write the execution-pattern trace ring to ``path`` as JSON."""
-        return self.metrics.trace.dump(path, meta={"server": self.name})
+        """Write the execution-pattern trace ring to ``path`` as JSON, with
+        the process's span records beside it (``spans``, checked against
+        ``span_schema``; empty while spans are off). A ``step`` span joins
+        its ring record by (``class_id``, ``step``)."""
+        records = _spans.snapshot()
+        _spans.validate_spans(records)
+        return self.metrics.trace.dump(path, meta={
+            "server": self.name, "span_schema": sorted(_spans.SPAN_SCHEMA), "spans": records})
 
     # ------------------------------------------------- request-level dispatch
     def _take_matching(self, group: list[_Request], key: tuple) -> None:
@@ -844,28 +858,25 @@ class RegionServer:
         """
         while True:
             with self._cv:
-                self._drain_queue_locked()
-                cls = self._pick_class_locked()
+                with span("sched.pick") as pick:
+                    self._drain_queue_locked()
+                    cls = self._pick_class_locked()
+                    if cls is not None:
+                        pick.set(class_id=cls.cid)
+                        if self._want_window_locked(cls):
+                            with span("sched.window", pending=len(cls.pending)):
+                                self._window_locked(cls)
+                        expired = self._shed_expired_locked(cls)
+                        joins = self._admit_members_locked(cls)
+                        group = list(cls.resident)
+                        cls.step += 1
+                        step_idx = cls.step
                 if cls is None:
                     if self._closed:
                         return
-                    self._cv.wait()
+                    with span("sched.idle"):
+                        self._cv.wait()
                     continue
-                if self._want_window_locked(cls):
-                    deadline = time.monotonic() + self.max_wait_s
-                    while True:
-                        remaining = deadline - time.monotonic()
-                        if remaining <= 0:
-                            break
-                        self._cv.wait(remaining)
-                        self._drain_queue_locked()
-                        if not self._want_window_locked(cls):
-                            break
-                expired = self._shed_expired_locked(cls)
-                joins = self._admit_members_locked(cls)
-                group = list(cls.resident)
-                cls.step += 1
-                step_idx = cls.step
             if expired:
                 now = time.monotonic()
                 self.metrics.on_deadline_shed(len(expired))
@@ -876,6 +887,18 @@ class RegionServer:
             if group:
                 self._execute_step(cls, group, step_idx, joins=joins, sheds=len(expired))
 
+    def _window_locked(self, cls: _ClassState) -> None:
+        """Hold the coalescing window open for ``cls``'s companions."""
+        deadline = time.monotonic() + self.max_wait_s
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return
+            self._cv.wait(remaining)
+            self._drain_queue_locked()
+            if not self._want_window_locked(cls):
+                return
+
     def _execute_step(self, cls: _ClassState, group: list, step_idx: int,
                       joins: int, sheds: int) -> None:
         """Run ONE replay step for a resident batch, then settle membership:
@@ -884,81 +907,88 @@ class RegionServer:
         migrates to the class that now matches."""
         t0 = time.monotonic()
         coalesced = False
-        try:
-            if len(group) == 1:
-                results: list = [self._run_single(group[0])]
-            else:
-                results, coalesced = self._run_batched(group)
-            _block_until_ready([r for r in results if not isinstance(r, Exception)])
-        except Exception as exc:
-            results = [exc] * len(group)
-        wall_ms = (time.monotonic() - t0) * 1e3
-        done: list = []
-        failed: list = []
-        leaves = 0
-        with self._cv:
-            for member, out in zip(group, results):
-                if isinstance(out, Exception):
-                    cls.resident.remove(member)
-                    failed.append((member, out))
-                    leaves += 1
-                    continue
-                member.steps_done += 1
-                if member.steps_done >= member.steps:
-                    cls.resident.remove(member)
-                    done.append((member, out))
-                    leaves += 1
-                    continue
-                tenant = member.tenant
-                member.buffers = {**member.buffers,
-                                  **{k: v for k, v in out.items() if k in member.buffers}}
-                canon = {tenant.slot_map[k]: v for k, v in member.buffers.items()
-                         if k in tenant.slot_map}
-                member.canon_buffers = canon
-                new_key = (tenant.sig, tenant.payload_ids, buffers_signature(canon),
-                           tenant.kernel_mode)
-                if new_key != cls.key:
-                    cls.resident.remove(member)
-                    member.key = new_key
-                    target = self._classes.get(new_key)
-                    if target is None:
-                        target = self._classes[new_key] = _ClassState(new_key,
-                                                                      self._next_cid)
-                        self._next_cid += 1
-                    target.pending.append(member)
-                    self._pending_count += 1
-                    leaves += 1
-            self._cv.notify_all()
-        now = time.monotonic()
-        for member, exc in failed:
-            self.metrics.on_done(now - member.t_submit, failed=True)
-            member.future.set_exception(exc)
-        for member, out in done:
-            self.metrics.on_done(now - member.t_submit, aot=member.served_aot,
-                                 tier=member.tenant.tier)
-            member.future.set_result(out)
-        self.metrics.on_batch(len(group), coalesced=coalesced)
-        tiers: dict[str, int] = {}
-        for member in group:
-            label = str(member.tenant.tier)
-            tiers[label] = tiers.get(label, 0) + 1
-        # The tuner's ladder (already refit by this step's own observation)
-        # names the bucket the batched path ran; pad lanes exist only when
-        # ONE batched call served the step.
-        bucket, padded = (1, 0) if len(group) < 2 else self._bucket_and_pad(len(group))
-        self.metrics.on_step({
-            "step": step_idx,
-            "class_id": cls.cid,
-            "occupancy": len(group),
-            "bucket": bucket,
-            "joins": joins,
-            "leaves": leaves,
-            "sheds": sheds,
-            "wall_ms": wall_ms,
-            "coalesced": coalesced,
-            "padded": padded if coalesced else 0,
-            "tiers": tiers,
-        })
+        with span("step", class_id=cls.cid, step=step_idx, occupancy=len(group)) as step:
+            if step:
+                step.set(rids=[m.rid for m in group])
+            try:
+                if len(group) == 1:
+                    results: list = [self._run_single(group[0])]
+                else:
+                    results, coalesced = self._run_batched(group)
+                with span("step.wait"):
+                    _block_until_ready([r for r in results if not isinstance(r, Exception)])
+            except Exception as exc:
+                results = [exc] * len(group)
+            wall_ms = (time.monotonic() - t0) * 1e3
+        with span("step.settle"):
+            done: list = []
+            failed: list = []
+            leaves = 0
+            with self._cv:
+                for member, out in zip(group, results):
+                    if isinstance(out, Exception):
+                        cls.resident.remove(member)
+                        failed.append((member, out))
+                        leaves += 1
+                        continue
+                    member.steps_done += 1
+                    if member.steps_done >= member.steps:
+                        cls.resident.remove(member)
+                        done.append((member, out))
+                        leaves += 1
+                        continue
+                    tenant = member.tenant
+                    member.buffers = {**member.buffers,
+                                      **{k: v for k, v in out.items() if k in member.buffers}}
+                    canon = {tenant.slot_map[k]: v for k, v in member.buffers.items()
+                             if k in tenant.slot_map}
+                    member.canon_buffers = canon
+                    new_key = (tenant.sig, tenant.payload_ids, buffers_signature(canon),
+                               tenant.kernel_mode)
+                    if new_key != cls.key:
+                        cls.resident.remove(member)
+                        member.key = new_key
+                        target = self._classes.get(new_key)
+                        if target is None:
+                            target = self._classes[new_key] = _ClassState(new_key,
+                                                                          self._next_cid)
+                            self._next_cid += 1
+                        target.pending.append(member)
+                        self._pending_count += 1
+                        leaves += 1
+                self._cv.notify_all()
+            now = time.monotonic()
+            with span("step.callbacks", n=len(failed) + len(done)):
+                for member, exc in failed:
+                    self.metrics.on_done(now - member.t_submit, failed=True)
+                    member.future.set_exception(exc)
+                for member, out in done:
+                    self.metrics.on_done(now - member.t_submit, aot=member.served_aot,
+                                         tier=member.tenant.tier)
+                    member.future.set_result(out)
+            self.metrics.on_batch(len(group), coalesced=coalesced)
+            tiers: dict[str, int] = {}
+            for member in group:
+                label = str(member.tenant.tier)
+                tiers[label] = tiers.get(label, 0) + 1
+            # The tuner's ladder (already refit by this step's own observation)
+            # names the bucket the batched path ran; pad lanes exist only when
+            # ONE batched call served the step.
+            bucket, padded = (1, 0) if len(group) < 2 else self._bucket_and_pad(len(group))
+            step.set(bucket=bucket)
+            self.metrics.on_step({
+                "step": step_idx,
+                "class_id": cls.cid,
+                "occupancy": len(group),
+                "bucket": bucket,
+                "joins": joins,
+                "leaves": leaves,
+                "sheds": sheds,
+                "wall_ms": wall_ms,
+                "coalesced": coalesced,
+                "padded": padded if coalesced else 0,
+                "tiers": tiers,
+            })
 
     # ------------------------------------------------------------- execution
     def _run_single(self, req: _Request) -> dict:
@@ -992,18 +1022,31 @@ class RegionServer:
 
     def _run_batched_fused(self, group: list[_Request]) -> list[dict]:
         tenant0 = group[0].tenant
-        canon = [r.canon_buffers for r in group]
-        slots = sorted(canon[0])
-        shared = frozenset(s for s in slots
-                           if all(cb[s] is canon[0][s] for cb in canon[1:]))
-        varying = tuple(s for s in slots if s not in shared)
-        shared_bufs = {s: canon[0][s] for s in shared}
+        with span("step.batch") as batch:
+            canon = [r.canon_buffers for r in group]
+            slots = sorted(canon[0])
+            shared = frozenset(s for s in slots
+                               if all(cb[s] is canon[0][s] for cb in canon[1:]))
+            varying = tuple(s for s in slots if s not in shared)
+            shared_bufs = {s: canon[0][s] for s in shared}
+            if varying:
+                entry, per_req = self._batched_entry(tenant0, shared, varying, canon)
+                batch.set(varying=len(varying), pad=len(per_req) - len(group))
         if not varying:
             # Every buffer is literally shared: one replay serves everyone.
             out0 = self._run_single(group[0])
             canon_out = {tenant0.slot_map[s]: v for s, v in out0.items()}
             return [{r.tenant.from_canon[c]: v for c, v in canon_out.items()}
                     for r in group]
+        with torch.no_grad(), _kreg.kernel_mode_scope(tenant0.kernel_mode):
+            outs = entry.fn({"per_req": tuple(per_req), "shared": shared_bufs})
+        return [{r.tenant.from_canon[c]: v for c, v in out_j.items()}
+                for r, out_j in zip(group, outs)]
+
+    def _batched_entry(self, tenant0: Tenant, shared: frozenset, varying: tuple,
+                       canon: list) -> tuple[PoolEntry, list]:
+        """The pool's batched callable for this structure and shared buffers,
+        and the members' varying buffers padded to the tuner's bucket."""
         key = ("batched", tenant0.sig, tenant0.payload_ids, shared, tenant0.kernel_mode,
                self.mesh_fp)
         entry = self.pool.get(key)
@@ -1018,15 +1061,14 @@ class RegionServer:
         # batch-axis multiple, so the request axis splits evenly.
         per_req = [{s: cb[s] for s in varying} for cb in canon]
         if self.buckets.observe(len(per_req)):
-            self.pool.invalidate(lambda k, e: e.kind == "batched")
-            self.metrics.on_bucket_retune(self.buckets.boundaries)
+            with span("tuner.refit") as refit:
+                invalidated = self.pool.invalidate(lambda k, e: e.kind == "batched")
+                self.metrics.on_bucket_retune(self.buckets.boundaries)
+                refit.set(boundaries=list(self.buckets.boundaries), invalidated=invalidated)
         _, pad = self._bucket_and_pad(len(per_req))
         per_req.extend(per_req[-1:] * pad)
         self.metrics.on_pad(pad)
-        with torch.no_grad(), _kreg.kernel_mode_scope(tenant0.kernel_mode):
-            outs = entry.fn({"per_req": tuple(per_req), "shared": shared_bufs})
-        return [{r.tenant.from_canon[c]: v for c, v in out_j.items()}
-                for r, out_j in zip(group, outs)]
+        return entry, per_req
 
     def _bucket_and_pad(self, occupancy: int) -> tuple[int, int]:
         """(bucket, pad lanes) for ``occupancy`` under the current ladder,

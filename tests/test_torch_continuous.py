@@ -225,6 +225,52 @@ def test_continuous_stats_flag_and_trace_dump(tmp_path):
     assert json.loads((tmp_path / "torch.json").read_text())["summary"]["steps"] == 1
 
 
+def test_scheduler_spans_join_the_trace_ring(tmp_path):
+    """With spans on, every step on the scheduler thread yields ``sched.pick``,
+    ``step``, ``step.wait`` and ``step.settle`` in that order; each ``step``
+    joins its ring record by (class_id, step) and lasts its ``wall_ms``; the
+    dump carries both, each checked against its schema."""
+    from repro_torch.core import spans
+
+    spans.enable()
+    try:
+        w = _w(T, 9)
+        server = T.Server(max_batch=4, continuous=True, autostart=False)
+        futs = []
+        for i, steps in enumerate([3, 3, 2]):
+            server.register_tenant(f"t{i}", _region(T, i))
+            futs.append(server.submit_stream(f"t{i}", _bufs(T, 250 + i, w), steps=steps))
+        server.start()
+        for f in futs:
+            f.result(120)
+        server.close()
+        doc = server.dump_trace(str(tmp_path / "trace.json"))
+    finally:
+        spans.disable()
+    ring = {(r["class_id"], r["step"]): r for r in doc["records"]}
+    sched = [s for s in doc["spans"] if s["thread"] == server._thread.name]
+    steps = [s for s in sched if s["name"] == "step"]
+    assert len(steps) == len(ring) == 3
+    for st in steps:
+        rec = ring[(st["args"]["class_id"], st["args"]["step"])]
+        assert abs((st["t1"] - st["t0"]) * 1e3 - rec["wall_ms"]) < 0.1
+        assert st["args"]["occupancy"] == rec["occupancy"]
+        assert st["args"]["bucket"] == rec["bucket"]
+        pick = max((s for s in sched if s["name"] == "sched.pick" and s["t1"] <= st["t0"]
+                    and s["args"].get("class_id") == rec["class_id"]), key=lambda s: s["t0"])
+        wait = [s for s in sched if s["name"] == "step.wait" and s["parent"] == st["id"]]
+        settle = min((s for s in sched if s["name"] == "step.settle" and s["t0"] >= st["t1"]),
+                     key=lambda s: s["t0"])
+        assert len(wait) == 1
+        assert pick["t1"] <= st["t0"] <= wait[0]["t0"] <= wait[0]["t1"] <= st["t1"] \
+            <= settle["t0"]
+    on_disk = json.loads((tmp_path / "trace.json").read_text())
+    assert on_disk["span_schema"] == sorted(spans.SPAN_SCHEMA)
+    spans.validate_spans(on_disk["spans"])
+    tmetrics.validate_trace(on_disk["records"])
+    assert server.stats()["graphs"]["evictions"] == 0
+
+
 def test_continuous_is_the_default_and_env_selects(monkeypatch):
     for P in (J, T):
         monkeypatch.delenv("REPRO_CONTINUOUS", raising=False)

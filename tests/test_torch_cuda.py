@@ -516,6 +516,45 @@ def test_capture_once_per_signature():
     clear_intern_cache()
 
 
+def test_replay_spans_time_each_part_of_a_captured_call():
+    """With spans on, a captured call records ``replay.key``, then at its
+    first call ``replay.capture``, then ``replay.copy_in``, ``replay.launch``
+    and ``replay.copy_out`` in that order; a second call captures nothing;
+    a served step's replay spans fall inside its ``step`` span."""
+    from repro_torch.core import TDG, clear_intern_cache, lower_tdg, spans
+    tdg = TDG("spans")
+    tdg.add_task(lambda x, w: torch.tanh(x @ w), ins=["x", "w"], outs=["y"])
+    fn = lower_tdg(tdg)
+    g = torch.Generator("cuda").manual_seed(1)
+    bufs = {"x": _randn(g, 8, 8), "w": _randn(g, 8, 8)}
+    spans.enable()
+    try:
+        fn(bufs)
+        fn(bufs)
+        recs = [r for r in spans.snapshot() if r["name"].startswith("replay.")]
+        server, reqs, _ = _served(_mix)
+        for f in server.submit_many([(f"t{i}", r) for i, r in enumerate(reqs)]):
+            f.result(120)
+        server.close()
+        served = spans.snapshot()
+    finally:
+        spans.disable()
+    names = [r["name"] for r in recs]
+    assert names == ["replay.key", "replay.capture", "replay.copy_in", "replay.launch",
+                     "replay.copy_out", "replay.key", "replay.copy_in", "replay.launch",
+                     "replay.copy_out"]
+    assert recs[0]["args"]["leaves"] == 2 and recs[1]["args"]["leaves"] == 2
+    assert all(a["t1"] <= b["t0"] for a, b in zip(recs, recs[1:]))
+    steps = [r for r in served if r["name"] == "step"]
+    launches = [r for r in served if r["name"] == "replay.launch"
+                and r["thread"] == server._thread.name]
+    assert steps and launches
+    for launch in launches:
+        assert any(s["t0"] <= launch["t0"] <= launch["t1"] <= s["t1"] for s in steps)
+    assert server.stats()["graphs"]["evictions"] == 0
+    clear_intern_cache()
+
+
 def test_host_sync_makes_the_capture_raise():
     from repro_torch.core import TDG, GraphCaptureError, ReplayExecutor, clear_intern_cache
     tdg = TDG("sync")

@@ -282,6 +282,7 @@ def test_serve_cli_qos_and_trace_flags_on_cpu(tmp_path, capsys):
     doc = __import__("json").loads(trace.read_text())
     assert doc["summary"]["steps"] >= 2 and {"0", "1"} <= set().union(
         *(r["tiers"] for r in doc["records"]))
+    assert {"prefill", "submit.key", "step", "step.wait"} <= {s["name"] for s in doc["spans"]}
     assert serve.main(["--smoke", "--device", "cpu", "--server", "--request-level",
                        "--tenants", "2", "--gen", "3", "--prompt-len", "8",
                        "--batch", "2"]) == 0

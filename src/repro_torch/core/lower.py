@@ -55,7 +55,8 @@ from . import fuse as _fuse
 from .costmodel import capture_cost_analysis as _capture_cost_analysis
 from .spans import span
 from . import schedule as _schedule
-from .tdg import TDG, structure_signature
+from .tdg import (TDG, BoundedMemo, KeyCounts, intern_key, plain_flatten, same_leaves,
+                  structure_signature)
 
 _FUSE_ENV = "REPRO_TORCH_FUSE"
 
@@ -131,8 +132,8 @@ def _graph_key(leaves: list, donated: list | None = None) -> tuple:
     key = []
     for i, leaf in enumerate(leaves):
         if isinstance(leaf, torch.Tensor):
-            if leaf.is_cuda:
-                key.append((tuple(leaf.shape), leaf.dtype, leaf.device)
+            if leaf.is_cuda:            # a torch.Size equals the tuple of its sizes
+                key.append((leaf.shape, leaf.dtype, leaf.device)
                            + ((leaf.data_ptr(), leaf.stride()) if donated and donated[i]
                               else ()))
             elif leaf.numel() <= CPU_VALUE_NUMEL:
@@ -241,6 +242,14 @@ class GraphReplay:
     drops them all. ``captures`` counts the graphs captured and
     ``capture_seconds`` the host time their warm-ups and captures took.
 
+    **Keying.** A call's key is ``(str(spec), _graph_key(leaves, donated))``
+    of its buffers' tree. The spec, its print and the donated mask are
+    memoised under the tree's :func:`~repro_torch.core.tdg.plain_flatten`
+    code, so a call with a known structure walks its tree once and builds
+    no ``TreeSpec``; the key is interned, so the graph lookup hashes it
+    once. ``keys`` counts the hits (structure known and key interned) and
+    misses.
+
     **Replay mesh.** A graph holds the work of the device it is captured on:
     a region whose fused classes are sharded over that device alone
     (virtual shards on one card) is captured as one graph, and one whose
@@ -261,6 +270,8 @@ class GraphReplay:
         self.captures = 0
         self.capture_seconds = 0.0
         self.evictions = 0
+        self.keys = KeyCounts()
+        self._structures = BoundedMemo()   # plain_flatten code -> (spec, str, donated)
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -283,16 +294,34 @@ class GraphReplay:
         return [k in self.donate for k, v in buffers.items()
                 for _ in range(len(pytree.tree_leaves(v)))]
 
+    def _key(self, buffers: dict) -> tuple:
+        """``(leaves, spec, donated, key, hit)`` of a call: ``key`` is None
+        when no leaf is a CUDA tensor; ``hit`` says the structure was
+        memoised and, on the card, the key interned."""
+        flat = plain_flatten(buffers)
+        structure = None if flat is None else self._structures.get(flat[1])
+        hit = structure is not None
+        if hit:
+            leaves = flat[0]
+        else:
+            leaves, spec = pytree.tree_flatten(buffers)
+            structure = (spec, str(spec), self._donated_leaves(buffers))
+            if flat is not None and same_leaves(flat[0], leaves):
+                self._structures.put(flat[1], structure)
+        spec, printed, donated = structure
+        key = None
+        if any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves):
+            key, interned = intern_key((printed, _graph_key(leaves, donated)))
+            hit = hit and interned
+        return leaves, spec, donated, key, hit
+
     def __call__(self, buffers: Mapping[str, Any]) -> dict:
         buffers = dict(buffers)
         with span("replay.key") as keying:
-            leaves, spec = pytree.tree_flatten(buffers)
-            keying.set(leaves=len(leaves))
-            cuda = any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves)
-            if cuda:
-                donated = self._donated_leaves(buffers)
-                key = (str(spec), _graph_key(leaves, donated))
-        if not cuda:
+            leaves, spec, donated, key, hit = self._key(buffers)
+            self.keys.count(hit)
+            keying.set(leaves=len(leaves), hit=int(hit))
+        if key is None:
             return self.fn(buffers)
         with self._lock:
             entry = self._graphs.get(key)

@@ -5,12 +5,17 @@ Port of ``repro.core.tdg``. A TDG is a DAG whose nodes are task instances
 dependencies, materialized once from OpenMP-style ``depend(in/out/inout)``
 clauses via a last-writer/readers table. Edges are RAW, WAR and WAW, as in
 OpenMP 5.x depend-clause semantics. Pure Python, apart from
-:func:`buffers_signature`, which abstracts torch tensors and modules.
+:func:`buffers_signature`, which abstracts torch tensors and modules and
+memoises what it finds (see "Memoised, interned signatures" below).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
+import operator
+import threading
+import weakref
 from typing import Any, Callable, Iterable, Mapping, Sequence
 
 import torch
@@ -269,10 +274,292 @@ def leaf_signature(v: Any) -> tuple:
     return ((), str(type(v)))
 
 
-def buffers_signature(buffers: Mapping[str, Any]) -> tuple:
-    """Abstract signature of a buffer dict (for coalescing and cache keys)."""
+def plain_buffers_signature(buffers: Mapping[str, Any]) -> tuple:
+    """Abstract signature of a buffer dict, computed from scratch: the
+    reference that :func:`buffers_signature` returns the value of, and its
+    miss path."""
     sig = []
     for k in sorted(buffers):
         leaves, spec = pytree.tree_flatten(buffers[k])
         sig.append((k, str(spec), tuple(leaf_signature(l) for l in leaves)))
     return tuple(sig)
+
+
+# ------------------------------------------- memoised, interned signatures
+#
+# A served step keys the same structure on every step: one params module of
+# hundreds of parameters and a cache tree of hundreds of fresh tensors.
+# Walking the module and printing the tree's spec each time costs
+# milliseconds of host time a step, so the answers are memoised: a buffer
+# dict is looked up by a probe that reads only each tensor's shape, dtype
+# and device, and every signature and graph key is interned, so equal keys
+# are one object whose hash is computed once.
+
+#: Entries each memo keeps, oldest dropped first. Dropping costs speed
+#: only: a key interned again is a new object, equal to the old one.
+KEY_MEMO_CAP = 4096
+
+
+class Canonical(tuple):
+    """The one object of its value in the intern table (:func:`intern_key`).
+    Its hash is computed once, so a dict lookup or a comparison that meets
+    the same object costs O(1) whatever its size. Pickles as a plain tuple:
+    a cached hash holds only in the process that computed it."""
+
+    def __new__(cls, value: tuple) -> "Canonical":
+        self = super().__new__(cls, value)
+        self._hash = tuple.__hash__(self)
+        return self
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __reduce__(self):
+        return tuple, (tuple(self),)
+
+
+class BoundedMemo:
+    """A dict of at most :data:`KEY_MEMO_CAP` entries, oldest out first.
+    Reads take no lock (a dict read is atomic under the interpreter lock);
+    writes take one."""
+
+    def __init__(self) -> None:
+        self._d: dict = {}
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        return self._d.get(key)
+
+    def put(self, key, value):
+        """Store ``value`` under ``key`` unless a value is there; return the
+        stored one."""
+        with self._lock:
+            value = self._d.setdefault(key, value)
+            while len(self._d) > KEY_MEMO_CAP:
+                del self._d[next(iter(self._d))]
+        return value
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+
+class KeyCounts:
+    """Hits and misses of one caller's key lookups (a server's, a replay's)."""
+
+    __slots__ = ("hits", "misses", "_lock")
+
+    def __init__(self) -> None:
+        self.hits = 0
+        self.misses = 0
+        self._lock = threading.Lock()
+
+    def count(self, hit: bool) -> None:
+        with self._lock:
+            if hit:
+                self.hits += 1
+            else:
+                self.misses += 1
+
+
+_interned = BoundedMemo()   # value -> its Canonical
+_probes = BoundedMemo()     # a buffer dict's probe -> its Canonical signature
+
+
+def intern_key(value: tuple) -> tuple[Canonical, bool]:
+    """The canonical object equal to ``value``, and whether one was held."""
+    canon = _interned.get(value)
+    if canon is not None:
+        return canon, True
+    canon = Canonical(value)
+    return _interned.put(canon, canon), False
+
+
+def interned_count() -> int:
+    """Canonical keys the process holds."""
+    return len(_interned)
+
+
+class _NotPlain(Exception):
+    """A node :func:`plain_flatten` leaves to ``pytree``."""
+
+
+_leaf_types: dict[type, bool] = {}   # type -> does pytree take it as a leaf
+_leaf_types_nodes = -1               # len(pytree.SUPPORTED_NODES) they hold for
+
+
+def _walk(x, leaves: list, code: list) -> None:
+    t = type(x)
+    if t is dict:
+        for k in x:
+            if type(k) is not str:
+                raise _NotPlain
+        code.append(tuple(x))
+        children = x.values()
+    elif t is list or t is tuple:
+        code.append(len(x) if t is list else ~len(x))
+        children = x
+    else:
+        leaf = _leaf_types.get(t)
+        if leaf is None:
+            flat = pytree.tree_leaves(x)
+            leaf = _leaf_types[t] = len(flat) == 1 and flat[0] is x
+        if not leaf:
+            raise _NotPlain
+        leaves.append(x)
+        code.append(None)
+        return
+    for v in children:                    # a known leaf type without a call
+        if _leaf_types.get(type(v)) is True:
+            leaves.append(v)
+            code.append(None)
+        else:
+            _walk(v, leaves, code)
+
+
+def plain_flatten(tree: Any) -> tuple[list, tuple] | None:
+    """``tree``'s leaves, in ``pytree.tree_flatten``'s order, and a flat
+    code of its structure; None for a tree with a node other than a dict of
+    str keys, a list or a tuple (a namedtuple, an OrderedDict, a registered
+    class), which is left to ``pytree``. Equal codes are equal specs. A walk
+    in Python over plain containers, several times faster than building a
+    ``TreeSpec``; callers check its leaves against ``pytree``'s on a miss."""
+    global _leaf_types_nodes
+    nodes = len(pytree.SUPPORTED_NODES)
+    if nodes != _leaf_types_nodes:        # a node type was (un)registered
+        _leaf_types.clear()
+        _leaf_types_nodes = nodes
+    leaves: list = []
+    code: list = []
+    try:
+        _walk(tree, leaves, code)
+    except _NotPlain:
+        return None
+    return leaves, tuple(code)
+
+
+def same_leaves(a: list, b: list) -> bool:
+    """The same objects in the same order."""
+    return len(a) == len(b) and all(map(operator.is_, a, b))
+
+
+# Module signatures: memoised under a weak reference to the module, and
+# re-derived after any parameter, buffer or submodule is registered
+# anywhere in the process (PyTorch's global registration hooks count them).
+_generation = 0
+_hook_lock = threading.Lock()
+_hooked = False
+_modules: dict[int, "_ModuleEntry"] = {}
+_SHAPE = operator.attrgetter("shape")
+_DTYPE = operator.attrgetter("dtype")
+
+
+def _registered(module, name, value) -> None:
+    global _generation
+    _generation += 1
+
+
+class _ModuleEntry:
+    __slots__ = ("ref", "generation", "type", "dicts", "names", "shapes", "dtypes", "sig")
+
+
+def _forget(key: int, ref, modules: dict = _modules) -> None:
+    # ``modules`` is bound here: a module may die while the interpreter
+    # tears this one down and its globals are gone.
+    entry = modules.get(key)
+    if entry is not None and entry.ref is ref:
+        modules.pop(key, None)
+
+
+def _learn_module(module: nn.Module) -> Canonical:
+    global _hooked
+    with _hook_lock:
+        if not _hooked:
+            from torch.nn.modules import module as _mm
+            _mm.register_module_parameter_registration_hook(_registered)
+            _mm.register_module_buffer_registration_hook(_registered)
+            _mm.register_module_module_registration_hook(_registered)
+            _hooked = True
+    e = _ModuleEntry()
+    e.generation = _generation            # read before the walk: a change
+    e.type = type(module)                 # during it misses next time
+    e.dicts, e.names, params, seen = [], [], [], set()
+    for mod in module.modules():          # named_parameters' members, deduplicated
+        for name, p in mod._parameters.items():
+            if p is not None and id(p) not in seen:
+                seen.add(id(p))
+                e.dicts.append(mod._parameters)
+                e.names.append(name)
+                params.append(p)
+    e.shapes = list(map(_SHAPE, params))
+    e.dtypes = list(map(_DTYPE, params))
+    e.sig = intern_key(leaf_signature(module))[0]
+    key = id(module)
+    e.ref = weakref.ref(module, functools.partial(_forget, key))
+    _modules[key] = e
+    return e.sig
+
+
+def module_signature(module: nn.Module) -> tuple[Canonical, bool]:
+    """:func:`leaf_signature` of a module, memoised, and whether it was a
+    hit. A hit needs the module the entry was made for alive (a dead
+    module's id never hits), no registration anywhere since, the module's
+    type unchanged, and every parameter, read now through the module that
+    owns it, of the shape and dtype it had: that catches ``.data`` swaps,
+    ``module.to(dtype)`` and deleted parameters, which no hook sees."""
+    e = _modules.get(id(module))
+    if (e is not None and e.ref() is module and e.generation == _generation
+            and type(module) is e.type):
+        params = list(map(dict.get, e.dicts, e.names))
+        try:
+            if list(map(_SHAPE, params)) == e.shapes and list(map(_DTYPE, params)) == e.dtypes:
+                return e.sig, True
+        except AttributeError:            # a parameter deleted or set to None
+            pass
+    return _learn_module(module), False
+
+
+def keyed_signature(buffers: Mapping[str, Any]) -> tuple[Canonical, bool]:
+    """:func:`buffers_signature` and whether it was a hit.
+
+    The probe holds each slot's name and :func:`plain_flatten` code, each
+    tensor leaf's shape, dtype and device, each module's memoised signature
+    and each other leaf's type: equal probes give equal signatures. A hit
+    needs the probe memoised and every module's signature a hit; a miss
+    computes :func:`plain_buffers_signature` and memoises it under the
+    probe once the walk's leaves agree with ``pytree``'s."""
+    probe: list = []
+    walked: list = []
+    hit = True
+    for k in sorted(buffers):
+        flat = plain_flatten(buffers[k])
+        if flat is None:
+            return intern_key(plain_buffers_signature(buffers))[0], False
+        leaves, code = flat
+        walked.append(leaves)
+        probe.append(k)
+        probe.append(code)
+        for leaf in leaves:
+            if isinstance(leaf, torch.Tensor):
+                probe.append((leaf.shape, leaf.dtype, leaf.device))
+            elif isinstance(leaf, nn.Module):
+                sig, known = module_signature(leaf)
+                hit = hit and known
+                probe.append(sig)
+            else:
+                probe.append(type(leaf))
+    probe = tuple(probe)
+    sig = _probes.get(probe)
+    if sig is not None:
+        return sig, hit
+    sig = intern_key(plain_buffers_signature(buffers))[0]
+    if all(same_leaves(leaves, pytree.tree_leaves(buffers[k]))
+           for k, leaves in zip(sorted(buffers), walked)):
+        _probes.put(probe, sig)
+    return sig, False
+
+
+def buffers_signature(buffers: Mapping[str, Any]) -> tuple:
+    """Abstract signature of a buffer dict (for coalescing and cache keys):
+    equal to :func:`plain_buffers_signature`'s, and the one canonical
+    object of that value, memoised by :func:`keyed_signature`."""
+    return keyed_signature(buffers)[0]

@@ -68,6 +68,12 @@ execution, as in the reference:
   the mesh (``lower_tdg(mesh=...)``). The mesh's fingerprint keys the
   pool's batched and AOT entries and is checked against a warm artifact's
   (``stats()["mesh"]``).
+* **Keys.** A request's coalescing key (its tenant's structure, payload
+  identities and kernel mode, and its buffers' signature) is memoised and
+  interned (``core.tdg.keyed_signature``, ``intern_key``): a decode step
+  keys its params module and cache tree without walking them, and equal
+  keys are one object, so the scheduler's comparisons and class lookups
+  resolve by identity. ``stats()["keys"]`` counts hits and misses.
 * **Metrics**: queue depth, occupancy, pool hit rate, p50/p99 latency
   overall and per tier, and a per-step trace ring (:meth:`dump_trace`).
 """
@@ -90,7 +96,8 @@ from ..core import lower as _lower
 from ..core import serialize as _serialize
 from ..core import spans as _spans
 from ..core.spans import span
-from ..core.tdg import TDG, buffers_signature, structure_signature
+from ..core.tdg import (TDG, KeyCounts, intern_key, interned_count, keyed_signature,
+                        structure_signature)
 from ..kernels import registry as _kreg
 from ..sharding import replay as _shreplay
 from .metrics import ServerMetrics
@@ -290,6 +297,7 @@ class RegionServer:
         self._closed = False
         self._started = False
         self._batched_replays: list = []  # every batched GraphReplay built
+        self._keys = KeyCounts()          # submissions' and settles' key lookups
         # Continuous-scheduler state (unused by the request-level dispatcher).
         self._classes: dict[tuple, _ClassState] = {}
         self._next_cid = 0
@@ -375,7 +383,7 @@ class RegionServer:
             tdg, list(outputs) if outputs is not None else None)
         tenant = Tenant(name=name, tdg=tdg,
                         outputs=tuple(outputs) if outputs is not None else None,
-                        kernel_mode=mode, sig=sig, slot_map=slot_map,
+                        kernel_mode=mode, sig=intern_key(sig)[0], slot_map=slot_map,
                         payloads=payloads, warm_path=warm_path, fuse=self.fuse,
                         capture=self.capture, mesh=self.mesh,
                         tier=tenant_tier_default(name) if tier is None else max(0, int(tier)),
@@ -463,13 +471,22 @@ class RegionServer:
             raise KeyError(f"request for tenant {tenant_name!r} is missing "
                            f"input slots {missing}")
         rid = next(self._rids)
-        with span("submit.key", rid=rid):
+        with span("submit.key", rid=rid) as keying:
             buffers = dict(buffers)
             canon = {tenant.slot_map[k]: v for k, v in buffers.items()
                      if k in tenant.slot_map}
-            key = (tenant.sig, tenant.payload_ids, buffers_signature(canon),
-                   tenant.kernel_mode)
+            key, hit = self._key(tenant, canon)
+            keying.set(hit=int(hit))
         return _Request(rid, tenant, buffers, canon, key, deadline=deadline, steps=steps)
+
+    def _key(self, tenant: Tenant, canon: dict) -> tuple[tuple, bool]:
+        """The interned coalescing key of a member's canonical buffers, and
+        whether its signature and key were memoised (counted in ``keys``)."""
+        sig, hit = keyed_signature(canon)
+        key, known = intern_key((tenant.sig, tenant.payload_ids, sig, tenant.kernel_mode))
+        hit = hit and known
+        self._keys.count(hit)
+        return key, hit
 
     def _waiting_locked(self) -> int:
         """Admitted-but-not-resident requests: the raw queue plus the class
@@ -665,11 +682,14 @@ class RegionServer:
 
     def stats(self) -> dict:
         """Serving metrics, pool counters, the bucket tuner, the global intern
-        counters, and the CUDA graphs behind the served steps (captures, the
-        host time of their warm-ups and captures, graphs held now)."""
+        counters, the CUDA graphs behind the served steps (captures, the
+        host time of their warm-ups and captures, graphs held now), and the
+        keys: hits and misses of this server's key lookups (submissions,
+        settles, its graph replays) and the canonical keys the process holds."""
         with self._cv:
             tenants = {t.name: t.requests for t in self._tenants.values()}
         replays = self._graph_replays()
+        keyed = [self._keys] + [r.keys for r in replays]
         return {
             "server": self.name,
             "max_batch": self.max_batch,
@@ -686,6 +706,9 @@ class RegionServer:
                        "capture_ms": 1e3 * sum(r.capture_seconds for r in replays),
                        "held": sum(len(r) for r in replays),
                        "evictions": sum(r.evictions for r in replays)},
+            "keys": {"hits": sum(k.hits for k in keyed),
+                     "misses": sum(k.misses for k in keyed),
+                     "entries": interned_count()},
         }
 
     def dump_trace(self, path: str) -> dict:
@@ -943,8 +966,7 @@ class RegionServer:
                     canon = {tenant.slot_map[k]: v for k, v in member.buffers.items()
                              if k in tenant.slot_map}
                     member.canon_buffers = canon
-                    new_key = (tenant.sig, tenant.payload_ids, buffers_signature(canon),
-                               tenant.kernel_mode)
+                    new_key = self._key(tenant, canon)[0]
                     if new_key != cls.key:
                         cls.resident.remove(member)
                         member.key = new_key

@@ -46,7 +46,7 @@ def main(argv=None) -> int:
     ref = check.reference(cell.config)
     B = cell.traffic["sequences"]
     for i, seed in enumerate(args.seeds):
-        W.fill(system.buffer, cell.model, seed)
+        W.fill(system.buffer, system.layout, seed)
         win = harness.drive(system, seed, args.seconds)
         picks = check.sample(win.served, seed, B, cell.traffic["check_sequences"])
         check.prune(win.served, picks)

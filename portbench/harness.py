@@ -1,9 +1,12 @@
 """One cell of the port's benchmark: set-up, the closed-loop window, records.
 
 A cell is a configuration (``configs/<name>.json``) under a traffic mix
-(``traffic/<name>.json``), named by ``BENCHMARK.json``. This module builds
-what the cell names and drives it; ``run.py`` is the command line around it,
-``check.py`` decides ``correct`` and ``metrics/<name>.py`` read the metrics.
+(``traffic/<name>.json``), named by ``BENCHMARK.json``. The configuration
+names its architecture (``"arch"``: ``arch/<name>.py``, the parameter layout
+and the model-level work counts) and its plain reference (``"reference"``:
+``reference/<name>.py``). This module builds what the cell names and drives
+it; ``run.py`` is the command line around it, ``check.py`` decides
+``correct`` and ``metrics/<name>.py`` read the metrics.
 
 The path the window drives is the program's serving path: a client's
 request is prefilled through ``repro_torch.models.model.prefill`` (one
@@ -22,6 +25,7 @@ import os
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -73,6 +77,7 @@ class Cell:
     config: dict
     traffic: dict
     limits: dict
+    arch: types.ModuleType     # arch/<config["arch"]>.py
 
     @property
     def model(self) -> dict:
@@ -91,10 +96,14 @@ def load_cell(workload: str, root: Path = REPO) -> Cell:
     if entry is None:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
     cfg_file = {c["name"]: c for c in bench["configs"]}[entry["config"]]["file"]
-    return Cell(workload, entry, bench,
-                json.loads((root / cfg_file).read_text()),
+    config = json.loads((root / cfg_file).read_text())
+    if "arch" not in config:
+        raise SystemExit(f'{cfg_file} has no "arch" key: name the module under '
+                         f'portbench/arch/ that lays out its parameters and counts its work')
+    return Cell(workload, entry, bench, config,
                 json.loads((PKG / "traffic" / f"{entry['traffic']}.json").read_text()),
-                json.loads((PKG / "cells" / f"{workload}.json").read_text()))
+                json.loads((PKG / "cells" / f"{workload}.json").read_text()),
+                load_file(PKG / "arch" / f"{config['arch']}.py"))
 
 
 def load_file(path: Path):
@@ -112,6 +121,19 @@ def port_config(model: dict):
 
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     return ModelConfig(**{k: v for k, v in model.items() if k in fields})
+
+
+def check_layout(layout: list, program) -> None:
+    """Stop unless ``layout`` names every parameter of the program's model
+    (a module on any device), at its shape, and nothing else."""
+    want = {name: tuple(p.shape) for name, p in program.named_parameters()}
+    have = {name: tuple(shape) for name, shape, _ in layout}
+    missing, extra = sorted(want.keys() - have.keys()), sorted(have.keys() - want.keys())
+    shapes = sorted(f"{n} {have[n]} (program {want[n]})"
+                    for n in want.keys() & have.keys() if have[n] != want[n])
+    if missing or extra or shapes:
+        raise ValueError(f"the arch layout does not match the program's parameters: "
+                         f"missing {missing}; extra {extra}; other shapes {shapes}")
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +213,9 @@ class System:
         self.model = cell.model
         self.cfg = port_config(self.model)
         self.traffic = cell.traffic
-        self.weights, self.buffer = W.make(self.model, seed, device)
+        self.layout = cell.arch.layout(self.model)
+        self.weights, self.buffer = W.make(self.layout, seed, device)
+        check_layout(self.layout, M.Model(self.cfg, "meta"))
         self.port = M.model_of(self.cfg, self.weights)
         srv = self.traffic["server"]
         t0 = clock()

@@ -99,6 +99,7 @@ def test_cell_files_found_by_name(cell):
     assert cfg["file"] == f"portbench/configs/{w['config']}.json"
     assert conf["name"] == w["config"] and conf["reduced"] == cfg["reduced"]
     assert (PKG / "reference" / f"{conf['reference']}.py").is_file()
+    assert (PKG / "arch" / f"{conf['arch']}.py").is_file()
     traffic = json.loads((PKG / "traffic" / f"{w['traffic']}.json").read_text())
     assert traffic["clients"] >= 1 and traffic["output_tokens"] >= 1
     limits = json.loads((PKG / "cells" / f"{cell}.json").read_text())

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from portbench import weights as W
+from portbench.arch import dense
 
 PKG = Path(__file__).resolve().parents[1]
 SMALL = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
@@ -36,7 +37,7 @@ def test_reference_is_the_programs_model(config):
 
     conf, m = _small(config)
     cfg = port_config(m)
-    weights, _ = W.make(m, 11, "cpu")
+    weights, _ = W.make(dense.layout(m), 11, "cpu")
     port = M.model_of(cfg, weights)
     ref = _reference(conf["reference"])
     g = torch.Generator().manual_seed(5)
@@ -58,12 +59,12 @@ def test_reference_is_the_programs_model(config):
 
 def test_weights_are_the_seeds():
     _, m = _small("glm4-9b")
-    a, buf = W.make(m, 2**31 + 9, "cpu")
-    b, _ = W.make(m, 2**31 + 9, "cpu")
-    c, _ = W.make(m, 2**31 + 10, "cpu")
+    a, buf = W.make(dense.layout(m), 2**31 + 9, "cpu")
+    b, _ = W.make(dense.layout(m), 2**31 + 9, "cpu")
+    c, _ = W.make(dense.layout(m), 2**31 + 10, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["head.table"], c["head.table"])
-    assert sorted(a) == sorted(name for name, _, _ in W.layout(m))
+    assert sorted(a) == sorted(name for name, _, _ in dense.layout(m))
     assert all((t.data_ptr() - buf.data_ptr()) % 256 == 0 for t in a.values())
     assert a["layers.0.attn.wq.w"].abs().max() <= 2 * 128 ** -0.5 + 1e-6
 
@@ -71,7 +72,7 @@ def test_weights_are_the_seeds():
 def test_control_rounds_to_float8():
     conf, m = _small("glm4-9b")
     ref = _reference(conf["reference"])
-    weights, _ = W.make(m, 4, "cpu")
+    weights, _ = W.make(dense.layout(m), 4, "cpu")
     toks = torch.randint(2, m["vocab_size"], (20,), generator=torch.Generator().manual_seed(2))
     rows = torch.arange(20)
     exact = ref.logits_at(m, weights, toks, rows)

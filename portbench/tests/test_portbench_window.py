@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 
 from portbench import harness, trace, work
+from portbench.arch import dense
 
 PKG = Path(__file__).resolve().parents[1]
 
@@ -44,8 +45,8 @@ def _window(served, t_open=10.0, t_close=20.0, steps=(), captures=(3, 3)):
 def _readings(win, trace_=None, sequences=16):
     model = json.loads((PKG / "configs" / "glm4-9b.json").read_text())["model"]
     model["padded_vocab"] = model["vocab_size"]
-    return harness.Readings(None, model, {"sequences": sequences}, win, trace_,
-                            work.PEAKS["NVIDIA H100 80GB HBM3"])
+    return harness.Readings(harness.load_cell("glm4-gen"), model, {"sequences": sequences}, win,
+                            trace_, work.PEAKS["NVIDIA H100 80GB HBM3"])
 
 
 def test_tokens_count_where_they_are_made():
@@ -110,11 +111,11 @@ def test_mfu_and_mbu_count_the_window():
     steps = [_step(12.04, 40, 1, 1), _step(12.08, 40, 1, 1)]
     r = _readings(_window([s], steps=steps))
     m = r.model
-    flops = work.prefill_flops(m, 16, 100) + 16 * (work.decode_flops(m, 101)
-                                                   + work.decode_flops(m, 102))
+    flops = dense.prefill_flops(m, 16, 100) + 16 * (dense.decode_flops(m, 101)
+                                                    + dense.decode_flops(m, 102))
     assert reader("mfu_pct")(r) == pytest.approx(100 * flops / (989e12 * 10.0))
-    nbytes = 2 * work.step_param_bytes(m, 16) + 16 * (work.token_cache_bytes(m, 101)
-                                                      + work.token_cache_bytes(m, 102))
+    nbytes = 2 * dense.step_param_bytes(m, 16) + 16 * (dense.token_cache_bytes(m, 101)
+                                                       + dense.token_cache_bytes(m, 102))
     assert reader("mbu_pct")(r) == pytest.approx(100 * nbytes / (3.35e12 * 10.0))
 
 

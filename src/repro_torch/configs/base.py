@@ -11,6 +11,11 @@ Configs are plain frozen dataclasses, as in the reference. Dtypes are kept
 as names (``"bfloat16"``, ``"float32"``) so a config stays hashable and
 printable; :attr:`ModelConfig.compute_dtype` and
 :attr:`ModelConfig.param_torch_dtype` give the torch dtypes.
+
+The fields in :data:`PORT_FIELDS` are the port's own, for configurations the
+port alone serves (Granite 4.0-H: Mamba-2 and attention layers by kind, a
+chip's share of the experts); every reference architecture leaves them at
+their defaults, so its counts are the reference's.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ class ModelConfig:
 
     # attention flavor
     attention: Literal["full", "sliding", "chunked"] = "full"
+    attn_scale: float = 0.0                 # softmax scale (0 -> head_dim ** -0.5)
     window: int = 0                         # sliding-window size
     attn_chunk: int = 0                     # chunked-local chunk size
     global_attn_every: int = 0              # every k-th layer is full attn
@@ -52,6 +58,9 @@ class ModelConfig:
     top_k: int = 0
     moe_d_ff: int = 0                       # per-expert hidden (0 -> d_ff)
     num_shared_experts: int = 0
+    shared_d_ff: int = 0                    # shared-expert hidden (0 -> expert_d_ff)
+    experts_held: int = 0                   # experts this chip holds (0 -> all); the
+    expert_offset: int = 0                  # router still scores num_experts
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     moe_impl: str = "gspmd"                 # "gspmd" | "shard_map" (expert-parallel
@@ -70,6 +79,9 @@ class ModelConfig:
 
     # hybrid (Hymba): SSM runs in parallel with attention inside each block
     hybrid_ssm: bool = False
+    # hybrid by layer (Granite 4.0-H): each layer's mixer, "mamba" or
+    # "attention", in order; () -> the family's one kind in every layer
+    layer_types: tuple = ()
 
     # encoder-decoder (Whisper): stub conv frontend supplies frame embeddings
     encoder_layers: int = 0
@@ -93,6 +105,20 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        # a list (a configuration read from JSON) is kept as a tuple: hashable
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if self.layer_types and len(self.layer_types) != self.num_layers:
+            raise ValueError(f"{len(self.layer_types)} layer_types for "
+                             f"{self.num_layers} layers")
+        if set(self.layer_types) - {"mamba", "attention"}:
+            raise ValueError(f"layer_types takes 'mamba' and 'attention'; got "
+                             f"{sorted(set(self.layer_types))}")
+        if self.experts_held and not (
+                0 <= self.expert_offset
+                and self.expert_offset + self.experts_held <= self.num_experts):
+            raise ValueError(f"experts {self.expert_offset}..."
+                             f"{self.expert_offset + self.experts_held - 1} held of "
+                             f"{self.num_experts}")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -120,6 +146,25 @@ class ModelConfig:
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    @property
+    def shared_expert_d_ff(self) -> int:
+        return self.shared_d_ff or self.expert_d_ff
+
+    @property
+    def held_experts(self) -> int:
+        """Routed experts whose weights this model holds."""
+        return self.experts_held or self.num_experts
+
+    def layer_kind(self, i: int) -> str:
+        """Layer ``i``'s mixer: "mamba" (the SSM family, or ``layer_types``
+        says so) or "attention" (with the SSM beside it when ``hybrid_ssm``)."""
+        if self.layer_types:
+            return self.layer_types[i]
+        return "mamba" if self.family == "ssm" else "attention"
+
+    def _kind_count(self, kind: str) -> int:
+        return sum(self.layer_kind(i) == kind for i in range(self.num_layers))
+
     # ---- derived counts (the reference's formulas) -------------------------
     def mlp_params(self, d_ff: int) -> int:
         per = 3 if self.mlp == "swiglu" else 2
@@ -136,40 +181,54 @@ class ModelConfig:
         conv = self.ssm_conv * (di + 2 * g * n)
         return in_proj + out_proj + conv + 2 * self.ssm_heads
 
-    def _block_params(self, experts: int) -> int:
-        if self.family == "ssm":
-            return self.ssm_params()
-        p = self.attn_params()
-        if self.hybrid_ssm:
-            p += self.ssm_params()
+    def _block_params(self, experts, layer: int = 0):
+        """Layer ``layer``'s parameters when ``experts`` routed experts count."""
+        if self.layer_kind(layer) == "mamba":
+            p = self.ssm_params()
+            if self.family == "ssm":
+                return p                                  # a pure Mamba-2 stack
+        else:
+            p = self.attn_params()
+            if self.hybrid_ssm:
+                p += self.ssm_params()
         if self.num_experts:
             p += experts * self.mlp_params(self.expert_d_ff)
+            p += self.num_shared_experts * self.mlp_params(self.shared_expert_d_ff)
             p += self.d_model * self.num_experts          # router
         else:
             p += self.mlp_params(self.d_ff)
         return p
 
-    def block_params(self) -> int:
-        """Parameters of one decoder block (norms and biases excluded)."""
-        return self._block_params(self.num_experts + self.num_shared_experts)
+    def block_params(self, layer: int = 0) -> int:
+        """Parameters of decoder block ``layer`` (norms and biases excluded):
+        its held experts, every shared one and the router."""
+        return self._block_params(self.held_experts, layer)
 
-    def active_block_params(self) -> int:
-        """A block's parameters that one token uses (top-k + shared experts)."""
-        return self._block_params(self.top_k + self.num_shared_experts)
+    def _active_experts(self):
+        """Routed experts a token uses here: top-k, or where this chip holds a
+        share, the held share of them on average (k · held / E)."""
+        if self.held_experts == self.num_experts:
+            return self.top_k
+        return self.top_k * self.held_experts / self.num_experts
 
-    def _param_count(self, block: int) -> int:
+    def active_block_params(self, layer: int = 0):
+        """Block ``layer``'s parameters that one token uses (its routed
+        experts and the shared ones)."""
+        return self._block_params(self._active_experts(), layer)
+
+    def _param_count(self, block) -> int:
         emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
-        body = self.num_layers * block
+        body = sum(block(i) for i in range(self.num_layers))
         if self.encoder_layers:
             body += self.encoder_layers * (self.attn_params() + self.mlp_params(self.d_ff))
             body += self.num_layers * self.attn_params()  # cross-attention
         return emb + body
 
     def param_count(self) -> int:
-        return self._param_count(self.block_params())
+        return self._param_count(self.block_params)
 
-    def active_param_count(self) -> int:
-        return self._param_count(self.active_block_params())
+    def active_param_count(self):
+        return self._param_count(self.active_block_params)
 
     def model_flops_per_token(self, seq_len: int, training: bool = True,
                               decode: bool = False) -> float:
@@ -178,7 +237,7 @@ class ModelConfig:
         ``decode``: one token against a seq_len-long context."""
         mult = 6.0 if training else 2.0
         flops = mult * self.active_param_count()
-        if self.family != "ssm":
+        if self._kind_count("attention"):
             if decode:
                 eff = seq_len
                 if self.attention == "sliding" and self.window:
@@ -193,11 +252,18 @@ class ModelConfig:
                     eff = min(eff, self.attn_chunk / 2)
             # qk^T and pv matmuls: 2 * 2 * H * hd * eff each fwd
             att = 4.0 * self.num_heads * self.head_dim * eff
-            flops += (mult / 2) * self.num_layers * att
-        if self.family == "ssm" or self.hybrid_ssm:
+            flops += (mult / 2) * self._kind_count("attention") * att
+        ssm_layers = self.num_layers if self.hybrid_ssm else self._kind_count("mamba")
+        if ssm_layers:
             # SSD state update + readout per token ~ 6 * d_inner * N
-            flops += (mult / 2) * self.num_layers * 6.0 * self.ssm_inner * self.ssm_state
+            flops += (mult / 2) * ssm_layers * 6.0 * self.ssm_inner * self.ssm_state
         return flops
+
+
+#: The fields the port has and the reference lacks; every reference
+#: architecture leaves them at their defaults.
+PORT_FIELDS = frozenset({"attn_scale", "shared_d_ff", "experts_held", "expert_offset",
+                         "layer_types"})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,13 @@
-"""Autograd for the kernels' custom ops: each op's backward rule (a plain
-function of tensors in ``ref.py``) registered twice over.
+"""The kernels' custom ops: each op defined with its CUDA kernel, and its
+backward rule (a plain function of tensors in ``ref.py``) registered twice
+over.
+
+:func:`cuda_op` defines an op from its kernel function and registers that
+function as the op's CUDA implementation, as it is.
+``torch.library.custom_op`` would wrap it in a lazy ``torch._dynamo.disable``
+instead, whose first call imports ``torch._dynamo`` and the compiler stack
+under it (some 840 modules): seconds of a server's set-up spent on a
+compiler the port never runs.
 
 ``torch.library.register_autograd`` makes the op itself differentiable under
 ``torch.autograd``; ``torch.func`` transforms (``vjp``, ``grad``) do not take
@@ -16,12 +24,32 @@ from typing import Callable
 
 import torch
 
+_libs: list = []   # the ops' libraries: an op lives as long as its library
+
+
+def cuda_op(qualname: str) -> Callable:
+    """Decorator: define the op ``qualname`` (``"namespace::name"``) with the
+    decorated function's schema (``torch.library.infer_schema``, mutating
+    nothing), register the function as its CUDA kernel, and return the op
+    (its default ``OpOverload``). Fake and vmap rules are registered on
+    ``qualname`` with ``torch.library.register_fake`` and ``register_vmap``."""
+    namespace, name = qualname.split("::")
+
+    def define(fn: Callable):
+        lib = torch.library.Library(namespace, "FRAGMENT")
+        _libs.append(lib)
+        lib.define(name + torch.library.infer_schema(fn, mutates_args=()))
+        lib.impl(name, fn, "CUDA")
+        return getattr(getattr(torch.ops, namespace), name).default
+
+    return define
+
 
 def differentiable(op, setup_context: Callable, backward: Callable) -> type:
     """Register ``backward`` on the custom op ``op`` and return the
     ``autograd.Function`` that applies ``op`` under the same rule."""
-    op.register_autograd(backward, setup_context=setup_context)
-    name = op._name.split("::")[-1]
+    torch.library.register_autograd(op, backward, setup_context=setup_context)
+    name = op.__name__.split(".")[0]
     return type(f"{name}_function", (torch.autograd.Function,), {
         "forward": staticmethod(lambda *args: op(*args)),
         "setup_context": staticmethod(setup_context),

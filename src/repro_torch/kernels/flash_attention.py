@@ -19,7 +19,7 @@ import threading
 import torch
 
 from . import _build
-from ._autograd import differentiable, needs_grad
+from ._autograd import cuda_op, differentiable, needs_grad
 from .ref import attention_bwd_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -106,8 +106,7 @@ def launch_kernel(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
-                         device_types="cuda")
+@cuda_op("repro_torch::flash_attention")
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool, window: int, chunk: int, scale: float,
                           q_offset: int) -> torch.Tensor:
@@ -126,12 +125,12 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-@_flash_attention_cuda.register_fake
+@torch.library.register_fake("repro_torch::flash_attention")
 def _(q, k, v, causal, window, chunk, scale, q_offset):
     return torch.empty_like(q)
 
 
-@_flash_attention_cuda.register_vmap
+@torch.library.register_vmap("repro_torch::flash_attention")
 def _(info, in_dims, q, k, v, causal, window, chunk, scale, q_offset):
     n = info.batch_size
 

@@ -19,7 +19,7 @@ import threading
 import torch
 
 from . import _build
-from ._autograd import differentiable, needs_grad
+from ._autograd import cuda_op, differentiable, needs_grad
 from .ref import grouped_matmul_bwd_ref, grouped_matmul_ref
 
 #: The kernels, by source: TMA + wgmma (bf16, d and f multiples of 8) and
@@ -100,8 +100,7 @@ def launch_kernel(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@torch.library.custom_op("repro_torch::grouped_matmul", mutates_args=(),
-                         device_types="cuda")
+@cuda_op("repro_torch::grouped_matmul")
 def _grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global launches
     _check(x, w)
@@ -117,12 +116,12 @@ def _grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@_grouped_matmul_cuda.register_fake
+@torch.library.register_fake("repro_torch::grouped_matmul")
 def _(x, w):
     return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
 
 
-@_grouped_matmul_cuda.register_vmap
+@torch.library.register_vmap("repro_torch::grouped_matmul")
 def _(info, in_dims, x, w):
     x_dim, w_dim = in_dims
     n = info.batch_size

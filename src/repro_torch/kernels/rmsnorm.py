@@ -17,7 +17,7 @@ import threading
 import torch
 
 from . import _build
-from ._autograd import differentiable, needs_grad
+from ._autograd import cuda_op, differentiable, needs_grad
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 MAX_D = 8192
@@ -107,7 +107,7 @@ def launch_kernel(name: str, x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return out
 
 
-@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=(), device_types="cuda")
+@cuda_op("repro_torch::rmsnorm")
 def _rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float,
                   residual: torch.Tensor | None) -> torch.Tensor:
     global launches
@@ -122,12 +122,12 @@ def _rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float,
     return out
 
 
-@_rmsnorm_cuda.register_fake
+@torch.library.register_fake("repro_torch::rmsnorm")
 def _(x, w, eps, residual):
     return torch.empty_like(x)
 
 
-@_rmsnorm_cuda.register_vmap
+@torch.library.register_vmap("repro_torch::rmsnorm")
 def _(info, in_dims, x, w, eps, residual):
     x_dim, w_dim, _, r_dim = in_dims
     n = info.batch_size

@@ -23,7 +23,7 @@ import threading
 import torch
 
 from . import _build
-from ._autograd import differentiable, needs_grad
+from ._autograd import cuda_op, differentiable, needs_grad
 from .ref import pad_ragged, ssd_intra_chunk_bwd_ref, ssd_intra_chunk_ref
 
 MAX_CHUNK = 128
@@ -146,8 +146,7 @@ def launch_kernel(name: str, xs, b, c, lda, chunk: int):
     return y, state, cdecay
 
 
-@torch.library.custom_op("repro_torch::ssd_intra_chunk", mutates_args=(),
-                         device_types="cuda")
+@cuda_op("repro_torch::ssd_intra_chunk")
 def _ssd_intra_chunk_cuda(xs: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                           lda: torch.Tensor, chunk: int
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -164,12 +163,12 @@ def _ssd_intra_chunk_cuda(xs: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return out
 
 
-@_ssd_intra_chunk_cuda.register_fake
+@torch.library.register_fake("repro_torch::ssd_intra_chunk")
 def _(xs, b, c, lda, chunk):
     return _empty_outputs(xs, b, chunk)
 
 
-@_ssd_intra_chunk_cuda.register_vmap
+@torch.library.register_vmap("repro_torch::ssd_intra_chunk")
 def _(info, in_dims, xs, b, c, lda, chunk):
     n = info.batch_size
 

@@ -219,7 +219,7 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = ops.attention(q, k, v, causal=causal and kv_x is None,
                             window=span if pattern == "sliding" else None,
                             chunk=span if pattern == "chunked" else None,
-                            q_chunk=cfg.attn_q_chunk)
+                            scale=cfg.attn_scale or None, q_chunk=cfg.attn_q_chunk)
     return linear(p.wo, out.reshape(B, S, H * hd), cdt), cache
 
 
@@ -259,7 +259,8 @@ def _cached_attention(cfg, q, k_new, v_new, positions, cache, *,
     """Decode/step attention against a (ring-buffered) KV cache.
 
     Slots are addressed ``pos % cache_len``; keys are cached post-RoPE and
-    masking uses per-slot absolute positions, as in the reference.
+    masking uses per-slot absolute positions, as in the reference. Scores
+    are scaled by ``cfg.attn_scale``, else head_dim ** -0.5.
     """
     Hkv, hd = k_new.shape[2], k_new.shape[3]
     new_cache = write_cache(cache, k_new, v_new, positions)
@@ -267,7 +268,7 @@ def _cached_attention(cfg, q, k_new, v_new, positions, cache, *,
 
     group = cfg.num_heads // Hkv
     qg = q.reshape(q.shape[0], q.shape[1], Hkv, group, hd).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float()) * (hd ** -0.5)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float()) * (cfg.attn_scale or hd ** -0.5)
     qpos = positions[:, :, None]                            # (B, S, 1)
     kpos = cpos[:, None, :]                                 # (B, 1, L)
     mask = (kpos >= 0) & (kpos <= qpos)                     # filled & causal

@@ -17,6 +17,7 @@ tensors; :func:`model_of` goes back to a ``Model`` sharing their storage.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import types
 from typing import Any, Mapping
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.spans import span
 from . import layers as L
+from . import moe as MoE
 from . import ssm as S
 from . import transformer as T
 
@@ -46,7 +48,7 @@ class Model(nn.Module):
         super().__init__()
         dt = cfg.param_torch_dtype
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, dt, device)
-        self.layers = nn.ModuleList(T.Block(cfg, device) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(T.Block(cfg, device, i) for i in range(cfg.num_layers))
         self.final_norm = T.norm_module(cfg, cfg.d_model, device)
         self.head = (None if cfg.tie_embeddings
                      else L.Embedding(cfg.padded_vocab, cfg.d_model, dt, device))
@@ -298,12 +300,13 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: torch.device | str) -> list:
-    """Per layer: ``{"ssm": {"conv", "ssd"}}`` (SSM family) or
-    ``{"attn": {"k", "v", "pos"}}``, with ``"ssm"`` beside it for hybrid and
-    ``"cross_kv": {"k", "v"}`` (B, encoder_seq, Hkv, hd) for encdec."""
+    """Per layer: ``{"ssm": {"conv", "ssd"}}`` (a Mamba-2 layer: the SSM
+    family, or a layer ``layer_types`` says is one) or ``{"attn": {"k", "v",
+    "pos"}}``, with ``"ssm"`` beside it for Hymba's hybrid and ``"cross_kv":
+    {"k", "v"}`` (B, encoder_seq, Hkv, hd) for encdec."""
     caches = []
     for i in range(cfg.num_layers):
-        if cfg.family == "ssm":
+        if cfg.layer_kind(i) == "mamba":
             caches.append({"ssm": S.init_ssm_state(cfg, batch, device)})
             continue
         c = {"attn": L.init_attn_cache(cfg, i, batch, max_len, device)}
@@ -317,18 +320,40 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def state_bytes(caches: list) -> dict:
+    """Bytes of each kind of per-layer state in ``caches``: ``ssm_bytes``
+    (conv history and SSD state) and ``kv_bytes`` (the attention ring's K,
+    V and slot positions)."""
+    def kind(name):
+        return sum(t.nbytes for c in caches if name in c for t in c[name].values())
+    return {"ssm_bytes": kind("ssm"), "kv_bytes": kind("attn")}
+
+
 def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int):
     """Process the prompt (and, for encdec, ``batch["frames"]``); returns
     (last-token logits, caches, next_pos). Its ``prefill`` span times the
-    host's enqueue of the work, not the card's."""
+    host's enqueue of the work, not the card's, except while spans record
+    on a MoE model: ``prefill.moe`` then reads each layer's routed rows
+    (``routed``) beside the rows its grouped products computed (``rows``)
+    at the end, which waits for the card. ``prefill.caches`` carries the
+    state built for the batch (:func:`state_bytes`) while recording."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
-    with span("prefill", batch=B, length=Sq):
-        with span("prefill.caches"):
+    with span("prefill", batch=B, length=Sq) as recording:
+        with span("prefill.caches") as sc:
             caches = init_caches(cfg, B, max_len, tokens.device)
-        h, _, caches = hidden_states(params, cfg, tokens, enc_out=_enc_out(params, cfg, batch),
-                                     mode="prefill", caches=caches)
+            if sc:
+                sc.set(**state_bytes(caches))
+        counting = recording and cfg.num_experts
+        with MoE.tally() if counting else contextlib.nullcontext() as counts:
+            h, _, caches = hidden_states(params, cfg, tokens,
+                                         enc_out=_enc_out(params, cfg, batch),
+                                         mode="prefill", caches=caches)
         logits = _logits(params, cfg, h[:, -1:])
+        if counts:
+            with span("prefill.moe") as sm:
+                sm.set(routed=torch.stack([r for r, _ in counts]).tolist(),
+                       rows=[n for _, n in counts])
         return logits, caches, torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
 
 

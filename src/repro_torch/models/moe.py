@@ -5,19 +5,30 @@ Port of ``repro.models.moe``. ``moe_apply`` dispatches on ``cfg.moe_impl``
 as the reference does: ``"shard_map"`` under an active mesh with a
 ``"model"`` axis (``sharding.partition.use_mesh``) takes the
 expert-parallel :func:`moe_apply_shard_map`; everything else takes
-:func:`moe_apply_gspmd`, the global dispatch. Dispatch is static-shape
-(capacity factor), and tokens over capacity pass through the residual.
+:func:`moe_apply_gspmd`, the global dispatch, which runs the local dispatch
+of one shard of the mesh path over the experts the model holds (all of
+them, or ``cfg.experts_held``: one chip of an expert-parallel deployment).
+Dispatch is static-shape (capacity factor), and tokens over capacity pass
+through the residual; a capacity factor of ``num_experts / top_k`` gives
+every expert room for every token, so none is dropped.
 
 Every step is written so that ``torch.func.vmap`` batches it across
 tenants (the server's coalesced decode): no ``.item()``, no data-dependent
 shapes, no ``bincount`` or ``one_hot``. ``jnp.argsort(stable=True)``
 becomes ``torch.sort(stable=True)``, the bincount a ``scatter_add``, the
-dispatch scatter ``index_put(accumulate=True)`` and ``segment_sum`` a
+dispatch scatter an ``index_put`` (every other entry into a junk row) and ``segment_sum`` a
 sum over the K choices of each token. Capacity is computed from the member's own token count.
+
+Inside :func:`tally` (the eager prefill, while spans record) each layer
+adds, on the calling thread, its rows routed to the experts it holds (a
+device tensor, read once by the caller) and the rows its grouped products
+computed.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 import types
 
 import torch
@@ -43,17 +54,20 @@ class ExpertWeights(nn.Module):
 
 
 class Experts(nn.Module):
+    """The routed experts this model holds (``cfg.held_experts`` of them)."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        d, f, E, dt = cfg.d_model, cfg.expert_d_ff, cfg.num_experts, cfg.param_torch_dtype
+        d, f, E, dt = cfg.d_model, cfg.expert_d_ff, cfg.held_experts, cfg.param_torch_dtype
         self.up = ExpertWeights(E, d, f, dt, device)
         self.gate = ExpertWeights(E, d, f, dt, device)
         self.down = ExpertWeights(E, f, d, dt, device)
 
 
 class MoE(nn.Module):
-    """``router.w`` (d, E), ``experts.{up,gate,down}.w`` and the shared
-    experts ``shared{i}`` (swiglu MLPs of width ``expert_d_ff``)."""
+    """``router.w`` (d, E) over every expert, ``experts.{up,gate,down}.w``
+    of the held ones and the shared experts ``shared{i}`` (swiglu MLPs of
+    width ``shared_expert_d_ff``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -61,10 +75,34 @@ class MoE(nn.Module):
         self.router = L.Linear(cfg.d_model, cfg.num_experts, dtype=dt, device=device)
         self.experts = Experts(cfg, device)
         for i in range(cfg.num_shared_experts):
-            self.add_module(f"shared{i}", L.MLP(cfg, device, d_ff=cfg.expert_d_ff))
+            self.add_module(f"shared{i}", L.MLP(cfg, device, d_ff=cfg.shared_expert_d_ff))
+
+
+_counts = threading.local()    # .rows: the open tally of this thread, if any
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect, on this thread, one ``(routed, rows)`` pair a MoE layer:
+    ``routed`` the (token, choice) rows sent to the experts the layer holds
+    (a 0-dim device tensor), ``rows`` the rows its grouped products computed."""
+    outer = getattr(_counts, "rows", None)
+    _counts.rows = []
+    try:
+        yield _counts.rows
+    finally:
+        _counts.rows = outer
+
+
+def _count(routed: torch.Tensor, rows: int) -> None:
+    out = getattr(_counts, "rows", None)
+    if out is not None:
+        out.append((routed.sum(), rows))
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Rows an expert takes, from the capacity factor, at least 8 and at
+    most every token (a token picks an expert at most once)."""
     c = math.ceil(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.num_experts)
     return max(8, min(n_tokens, math.ceil(c / 8) * 8))
 
@@ -126,6 +164,30 @@ def _combine(eout: torch.Tensor, rows: torch.Tensor, weights: torch.Tensor,
     return (gathered.float() * weights[:, None]).reshape(T, K, d).sum(dim=1)
 
 
+def _held_part(cdt, tokens, flat_expert, pos, keep, gate_vals, lo: int, E_loc: int, C: int,
+               up_w, gate_w, down_w, T: int, K: int) -> torch.Tensor:
+    """The f32 combine of the part experts ``[lo, lo + E_loc)`` give: their
+    (token, choice) rows of ``tokens`` (T·K, d) dispatched to (E_loc, C, d),
+    the three grouped GEMMs with their weights, gathered back weighted by
+    the gates; every other row adds nothing."""
+    dev, d = tokens.device, tokens.shape[-1]
+    local_e = flat_expert - lo
+    mine = (local_e >= 0) & (local_e < E_loc) & keep
+    row = torch.clamp(local_e, 0, E_loc - 1) * C + pos
+    # Dispatch: every kept (token, k) of these experts owns its (expert,
+    # slot) row, so the tokens are copied in; the other entries (half or
+    # more of them) all go to one junk row past the end, never read.
+    # Adding them in as zeros, as the global dispatch does, piles every one
+    # onto a few rows, whose atomic adds serialize on the card.
+    flat = torch.zeros((E_loc * C + 1, d), dtype=cdt, device=dev).index_put(
+        (torch.where(mine, row, E_loc * C),), tokens)
+    disp = flat[:E_loc * C].view(E_loc, C, d)
+    eout = _expert_ffn(cdt, disp, up_w, gate_w, down_w)        # (E_loc, C, d)
+    weights = torch.where(mine, gate_vals.reshape(-1), 0.0)
+    _count(mine, E_loc * C)
+    return _combine(eout, torch.where(mine, row, 0), weights, T, K)
+
+
 def _shared_experts(p: MoE, cfg: ModelConfig, x: torch.Tensor, out: torch.Tensor):
     for i in range(cfg.num_shared_experts):
         out = out + L.mlp_apply(getattr(p, f"shared{i}"), cfg, x)
@@ -145,13 +207,18 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
 
 def moe_apply_gspmd(p: MoE, cfg: ModelConfig, x: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The global dispatch: every expert's tokens gathered from all of x."""
+    """The global dispatch: every held expert's tokens gathered from all of
+    x. The router scores all ``num_experts`` and picks the top k of them;
+    the layer computes the part its held experts ``[expert_offset,
+    expert_offset + held_experts)`` give (the local dispatch of one shard of
+    :func:`moe_apply_shard_map`, with no exchange), and the shared experts
+    whole. Where the model holds a share, what the other chips' experts
+    would add is left out."""
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
     cdt = cfg.compute_dtype
     T = B * S
     xt = x.reshape(T, d)
-    dev = x.device
 
     probs, gate_vals, expert_idx = route(p, cfg, xt)
     aux = _aux(cfg, probs, expert_idx)
@@ -159,20 +226,11 @@ def moe_apply_gspmd(p: MoE, cfg: ModelConfig, x: torch.Tensor
     C = capacity(cfg, T)
     flat_expert = expert_idx.reshape(-1)                       # (T*K,)
     pos, keep = _positions(flat_expert, E, C)
-
-    # dispatch: scatter tokens into (E, C, d)
-    tok_ids = torch.arange(T, device=dev).repeat_interleave(K)
-    safe_pos = torch.where(keep, pos, C - 1)
-    contrib = torch.where(keep[:, None], xt.index_select(0, tok_ids).to(cdt), 0)
-    disp = torch.zeros((E, C, d), dtype=cdt, device=dev).index_put(
-        (flat_expert, safe_pos), contrib, accumulate=True)
-
+    tokens = xt.index_select(0, torch.arange(T, device=x.device).repeat_interleave(K)).to(cdt)
     ex = p.experts
-    eout = _expert_ffn(cdt, disp, ex.up.w, ex.gate.w, ex.down.w)   # (E, C, d)
-    weights = torch.where(keep, gate_vals.reshape(-1), 0.0)
-    combined = _combine(eout, flat_expert * C + safe_pos, weights, T, K)
-    out = combined.to(cdt).reshape(B, S, d)
-    return _shared_experts(p, cfg, x, out), aux
+    part = _held_part(cdt, tokens, flat_expert, pos, keep, gate_vals, cfg.expert_offset,
+                      cfg.held_experts, C, ex.up.w, ex.gate.w, ex.down.w, T, K)
+    return _shared_experts(p, cfg, x, part.to(cdt).reshape(B, S, d)), aux
 
 
 def moe_apply_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor
@@ -193,6 +251,9 @@ def moe_apply_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor
     """
     mesh = _partition.active_mesh()
     E, K = cfg.num_experts, cfg.top_k
+    if cfg.held_experts != E:
+        raise ValueError(f"the mesh's expert shards split all {E} experts; this model "
+                         f"holds {cfg.held_experts}")
     tp = mesh.shape["model"]
     if E % tp:
         raise ValueError(f"{E} experts do not split over model={tp}")
@@ -226,25 +287,14 @@ def moe_apply_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor
         for m in range(tp):
             dev = mesh.device_at({**coords, "model": m})
             with _shreplay.at_position(mesh, {**coords, "model": m}, "all-to-all", "all-to-all"):
-                local_e = flat_expert.to(dev) - m * E_loc
-                mine = (local_e >= 0) & (local_e < E_loc) & keep.to(dev)
-                row = torch.clamp(local_e, 0, E_loc - 1) * C + pos.to(dev)
-                # Dispatch: every kept (token, k) of this shard's experts
-                # owns its (expert, slot) row, so the tokens are copied in;
-                # the other entries (half or more of them) all go to one
-                # junk row past the end, never read. Adding them in as
-                # zeros, as the global dispatch does, piles every one onto
-                # a few rows, whose atomic adds serialize on the card.
-                flat = torch.zeros((E_loc * C + 1, d), dtype=cdt, device=dev).index_put(
-                    (torch.where(mine, row, E_loc * C),), tokens.to(dev))
-                disp = flat[:E_loc * C].view(E_loc, C, d)
                 w = [t.narrow(0, m * E_loc, E_loc).to(dev)
                      for t in (ex.up.w, ex.gate.w, ex.down.w)]
-                eout = _expert_ffn(cdt, disp, *w)               # (E_loc, C, d)
-                weights = torch.where(mine, gate_vals.reshape(-1).to(dev), 0.0)
-                part = _combine(eout, torch.where(mine, row, 0), weights, T, K).to(home)
+                part = _held_part(cdt, tokens.to(dev), flat_expert.to(dev), pos.to(dev),
+                                  keep.to(dev), gate_vals.to(dev), m * E_loc, E_loc, C,
+                                  *w, T, K).to(home)
             combined = part if combined is None else combined + part
         outs.append(combined.reshape(Bl, S, d).to(cdt))
     out = torch.cat(outs) if dp > 1 else outs[0]
     aux = torch.stack(auxes).mean() if dp > 1 else auxes[0]
     return _shared_experts(p, cfg, x, out), aux
+

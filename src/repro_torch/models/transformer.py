@@ -7,7 +7,9 @@ Port of ``repro.models.transformer`` for every family of the reference:
 * moe:    pre-norm GQA attention + pre-norm MoE;
 * ssm:    pre-norm Mamba-2 mixer (no MLP: a pure Mamba-2 stack);
 * hybrid: pre-norm attention ∥ SSM on the same normed input, fused as the
-  mean of the two outputs' RMSNorms, + pre-norm MLP (Hymba);
+  mean of the two outputs' RMSNorms, + pre-norm MLP (Hymba); or, with
+  ``layer_types``, a pre-norm mixer chosen by the layer's kind (Mamba-2 or
+  attention), each + pre-norm MoE (Granite 4.0-H);
 * encdec: LayerNorm blocks; the decoder's blocks add cross-attention to
   the encoder's output (from the cached K/V in decode), and the encoder's
   blocks are bidirectional with no RoPE (Whisper).
@@ -47,14 +49,18 @@ def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    """Decoder block ``layer``: its mixer by ``cfg.layer_kind(layer)``."""
+
+    def __init__(self, cfg: ModelConfig, device=None, layer: int = 0):
         super().__init__()
         dt = cfg.param_torch_dtype
         self.norm1 = norm_module(cfg, cfg.d_model, device)
-        if cfg.family == "ssm":
+        if cfg.layer_kind(layer) == "mamba":
             self.ssm = S.SSM(cfg, device)
-            return
-        self.attn = L.Attention(cfg, device)
+            if cfg.family == "ssm":
+                return
+        else:
+            self.attn = L.Attention(cfg, device)
         if cfg.hybrid_ssm:
             self.ssm = S.SSM(cfg, device)
             self.attn_out_norm = L.RMSNorm(cfg.d_model, dt, device)
@@ -79,12 +85,30 @@ def block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
     new_cache = dict(cache) if cache is not None else None
 
     h = norm(cfg, p.norm1, x)
-    if cfg.family == "ssm":
+    if cfg.layer_kind(layer_idx) == "mamba":
         y, st = S.ssm_apply(p.ssm, cfg, h, state=cache["ssm"] if cache else None)
         if new_cache is not None:
             new_cache["ssm"] = st
-        return x + rs * y, aux, new_cache
+        x = x + rs * y
+        if cfg.family == "ssm":
+            return x, aux, new_cache
+    else:
+        x = _attention_mixer(p, cfg, x, h, positions, layer_idx=layer_idx, mode=mode,
+                             cache=cache, new_cache=new_cache, enc_out=enc_out)
 
+    h2 = norm(cfg, p.norm2, x)
+    if cfg.num_experts:
+        mlp_out, aux = M.moe_apply(p.moe, cfg, h2)
+    else:
+        mlp_out = L.mlp_apply(p.mlp, cfg, h2)
+    return x + rs * mlp_out, aux, new_cache
+
+
+def _attention_mixer(p: Block, cfg: ModelConfig, x, h, positions, *, layer_idx: int,
+                     mode: str, cache, new_cache, enc_out):
+    """Attention (∥ the SSM when hybrid) and, for encdec, cross-attention:
+    the residual stream after them; ``new_cache`` is filled in place."""
+    rs = cfg.residual_scale
     pattern, span = L.layer_attn_pattern(cfg, layer_idx)
     if mode == "decode":
         attn_out, new_cache["attn"] = L.attention_apply(
@@ -119,13 +143,7 @@ def block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
             if new_cache is not None:
                 new_cache["cross_kv"] = _make_cross_cache(p.cross, cfg, enc_out)
         x = x + rs * c_out
-
-    h2 = norm(cfg, p.norm2, x)
-    if cfg.num_experts:
-        mlp_out, aux = M.moe_apply(p.moe, cfg, h2)
-    else:
-        mlp_out = L.mlp_apply(p.mlp, cfg, h2)
-    return x + rs * mlp_out, aux, new_cache
+    return x
 
 
 def _write_prefill_cache(cfg, pa: L.Attention, h, positions, cache):

@@ -968,3 +968,40 @@ def test_bf16_cuda_tensor_roundtrips_the_codec():
         back = rpc.decode(rpc.encode({"x": x, "s": x[0, 0]}, codec))
         assert back["x"].device.type == "cpu" and back["x"].dtype == torch.bfloat16
         assert torch.equal(back["x"], x.cpu()) and back["s"].shape == ()
+
+
+_FIRST_CALLS = """
+import sys, torch
+from repro_torch.kernels import flash_attention as fa, moe_gmm as gmm, rmsnorm as rms, ssd_scan
+x, w = torch.randn(3, 8, 64, device="cuda"), torch.ones(64, device="cuda")
+rms.rmsnorm(x, w)
+torch.func.vmap(lambda a: rms.rmsnorm(a, w))(x)
+xg = x.clone().requires_grad_()
+rms.rmsnorm(xg, w).sum().backward()
+q = torch.randn(1, 16, 2, 64, device="cuda", dtype=torch.bfloat16)
+fa.flash_attention(q, q, q)
+gmm.grouped_matmul(torch.randn(2, 8, 16, device="cuda"), torch.randn(2, 16, 24, device="cuda"))
+b = torch.randn(2, 32, 8, device="cuda")
+ssd_scan.ssd_intra_chunk(torch.randn(4, 32, 16, device="cuda"), b, b,
+                         -torch.rand(4, 32, device="cuda"), 16)
+torch.cuda.synchronize()
+print("torch._dynamo" in sys.modules)
+"""
+
+
+def test_the_kernels_first_calls_load_no_compiler():
+    """The ops are registered as they are (``_autograd.cuda_op``): each
+    kernel's first launches, direct, under vmap and under autograd, load no
+    ``torch._dynamo``, which a ``custom_op`` kernel's first call imports
+    (seconds of a server's set-up)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = subprocess.run([sys.executable, "-c", _FIRST_CALLS], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip() == "False"

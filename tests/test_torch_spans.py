@@ -2,14 +2,18 @@
 ``parent``, a request's ``rid`` from its submission to the step that
 served it, the ring's bound, nothing recorded or built while off, Python
 collections as ``python.gc`` spans, recording under a ``torch.profiler``
-session alone, and the schema check."""
+session alone, the schema check, and a hybrid MoE prefill's per-layer
+expert rows (``prefill.moe``) and state bytes (``prefill.caches``)."""
 import gc
 import threading
 
 import pytest
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import TDG, spans
+from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 from repro_torch.serving import RegionServer
 
 
@@ -146,3 +150,58 @@ def test_span_schema_rejects_malformed_records(bad):
     spans.validate_spans([GOOD])
     with pytest.raises(ValueError):
         spans.validate_spans([GOOD, bad])
+
+
+#: A tiny Granite-like hybrid: Mamba, attention, Mamba layers, each with an
+#: MoE of 8 experts, top-2, of which experts 2-5 are held, dropless (capacity
+#: factor experts / top-k).
+HYBRID = ModelConfig(
+    name="hybrid-moe-tiny", family="hybrid", num_layers=3, d_model=32, num_heads=2,
+    num_kv_heads=1, head_dim=16, d_ff=16, vocab_size=256,
+    layer_types=("mamba", "attention", "mamba"), attn_scale=1 / 16, rope_theta=0.0,
+    num_experts=8, top_k=2, moe_d_ff=16, num_shared_experts=1, shared_d_ff=24,
+    experts_held=4, expert_offset=2, capacity_factor=8 / 2, ssm_state=8, ssm_headdim=16,
+    ssm_chunk=8, tie_embeddings=True, dtype="float32")
+
+
+def _hybrid_prefill(monkeypatch, tokens=11, max_len=20):
+    """Prefill the tiny hybrid; the experts each MoE layer's router chose."""
+    model = M.init_params(HYBRID, torch.Generator().manual_seed(3))
+    chosen, route = [], MOE.route
+
+    def spy(p, cfg, xt):
+        out = route(p, cfg, xt)
+        chosen.append(out[2])
+        return out
+
+    monkeypatch.setattr(MOE, "route", spy)
+    toks = torch.randint(2, 256, (1, tokens), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        _, caches, _ = M.prefill(model, HYBRID, {"tokens": toks}, max_len)
+    return chosen, caches
+
+
+def test_prefill_records_expert_rows_and_state_bytes(monkeypatch):
+    spans.enable()
+    chosen, caches = _hybrid_prefill(monkeypatch)
+    recs = {r["name"]: r for r in spans.snapshot()}
+    held = [int(((c >= 2) & (c < 6)).sum()) for c in chosen]      # experts 2-5
+    assert recs["prefill.moe"]["args"] == {"routed": held, "rows": [4 * 11] * 3}
+    assert recs["prefill.moe"]["parent"] == recs["prefill"]["id"]
+    # 2 Mamba layers: conv history (K-1, d_inner + 2N) and SSD state (H, P, N);
+    # 1 attention layer: K and V (L, Hkv, hd) and the slots' positions
+    ssm = 2 * 4 * (3 * (64 + 16) + 4 * 16 * 8)
+    kv = 4 * (2 * 20 * 16) + 4 * 20
+    assert recs["prefill.caches"]["args"] == {"ssm_bytes": ssm, "kv_bytes": kv}
+    assert M.state_bytes(caches) == {"ssm_bytes": ssm, "kv_bytes": kv}
+    spans.validate_spans(spans.snapshot())
+
+
+def test_prefill_counts_nothing_while_spans_are_off(monkeypatch):
+    def refuse():
+        raise AssertionError("tally opened with spans off")
+
+    monkeypatch.setattr(MOE, "tally", refuse)
+    monkeypatch.setattr(M, "state_bytes", lambda caches: refuse())
+    _hybrid_prefill(monkeypatch)
+    assert spans.snapshot() == [] and getattr(MOE._counts, "rows", None) is None
